@@ -324,6 +324,35 @@ def deberta_v3_config(size: str) -> BackboneConfig:
     return BackboneConfig(model_type="deberta-v2", **sizes[size])
 
 
+def qwen2_config(size: str = "1.5b") -> BackboneConfig:
+    """Qwen2 decoder geometry (the gliclass-qwen-1.5B-v1.0 backbone)."""
+    sizes = {
+        # Qwen/Qwen2-1.5B geometry
+        "1.5b": dict(
+            hidden_size=1536, num_hidden_layers=28, num_attention_heads=12,
+            num_key_value_heads=2, intermediate_size=8960, vocab_size=151936,
+            max_position_embeddings=32768, rope_theta=1_000_000.0,
+            hidden_act="silu", rms_norm_eps=1e-6,
+        ),
+    }
+    return BackboneConfig(model_type="qwen2", relative_attention=False, **sizes[size])
+
+
+def llama_config(size: str = "1.3b") -> BackboneConfig:
+    """Llama decoder geometry (the gliclass-llama-1.3B-v1.0 backbone,
+    Sheared-LLaMA-1.3B)."""
+    sizes = {
+        # princeton-nlp/Sheared-LLaMA-1.3B geometry
+        "1.3b": dict(
+            hidden_size=2048, num_hidden_layers=24, num_attention_heads=16,
+            num_key_value_heads=16, intermediate_size=5504, vocab_size=32000,
+            max_position_embeddings=4096, rope_theta=10000.0,
+            hidden_act="silu", rms_norm_eps=1e-5,
+        ),
+    }
+    return BackboneConfig(model_type="llama", relative_attention=False, **sizes[size])
+
+
 # HF encoder config -> BackboneConfig (attribute-based, no transformers import).
 def llama_config_from_hf(hf_cfg, model_type: str) -> BackboneConfig:
     """transformers LlamaConfig / Qwen2Config -> BackboneConfig."""

@@ -3,7 +3,8 @@
 input_ids + attention_mask in, per-label logits out — the I/O contract of the
 reference's exported graph (reference ONNX_CONVERTING/convert_to_onnx.py:63-79).
 Zero-shot classification is one forward pass per text: labels ride in the
-prompt. This slice runs the DeBERTa-v2/v3 backbone; decoder backbones raise.
+prompt. The backbone is a DeBERTa-v2/v3 encoder or a Llama/Qwen2 decoder
+run as a causal encoder.
 """
 
 from __future__ import annotations
@@ -15,8 +16,25 @@ import torch
 from ..config import GLiClassConfig
 from .deberta import deberta_encode
 from .heads import gliclass_head
+from .llama import llama_encode
 
 Params = dict[str, Any]
+
+
+def encode_backbone(
+    params: Params,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    cfg: GLiClassConfig,
+    compute_dtype,
+) -> torch.Tensor:
+    """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone."""
+    bb = cfg.backbone
+    if bb.model_type == "deberta-v2":
+        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype)
+    if bb.model_type in ("llama", "qwen2"):
+        return llama_encode(params, input_ids, attention_mask, bb, compute_dtype)
+    raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
 
 
 def gliclass_forward(
@@ -34,12 +52,7 @@ def gliclass_forward(
             "(the exporter enforces uni-encoder too; reference "
             "ONNX_CONVERTING/convert_to_onnx.py:48-52)"
         )
-    bb = cfg.backbone
-    if bb.model_type in ("llama", "qwen2"):
-        raise NotImplementedError(f"the {bb.model_type} backbone is not ported yet")
-    if bb.model_type != "deberta-v2":
-        raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
-    hidden = deberta_encode(params["backbone"], input_ids, attention_mask, bb, compute_dtype)
+    hidden = encode_backbone(params["backbone"], input_ids, attention_mask, cfg, compute_dtype)
     logits, _ = gliclass_head(
         params["head"], hidden, input_ids, attention_mask, cfg, max_labels, compute_dtype
     )

@@ -33,7 +33,12 @@ _SIGNATURES = {
     ],
     "gct_fused_ffn_w8a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_fused_ffn_w8a8_smem": [_I, _I],
+    "gct_fused_ffn_wonly": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_fused_ffn_wonly_smem": [_I, _I],
     "gct_int8_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_causal_flash_attention": [
+        _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+    ],
 }
 
 _LIB = None

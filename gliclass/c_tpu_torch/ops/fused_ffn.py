@@ -1,16 +1,17 @@
-"""Feed-forward block y = act(x @ up) @ down, with the fused w8a8 kernel K2.
+"""Feed-forward block y = act(x @ up) @ down, with the fused kernels K2 and K4.
 
-Routing (no environment switch):
+Routing (no environment switch), for INT8 weights in reduced precision:
 
-  * INT8 weights, ``act_quant`` on, reduced precision: the fused w8a8 kernel
-    (``csrc/fused_ffn_w8a8.cu``) — the activated [M, I] intermediate stays
-    on chip;
-  * INT8 weights otherwise (weight-only): two INT8-weight matmuls (K3) with
-    tanh-gelu between them, as the JAX package composes it;
-  * fp weights or fp32: plain ``linear`` layers.
+  * ``act_quant`` on (``int8-dynamic``): the fused w8a8 kernel K2
+    (``csrc/fused_ffn_w8a8.cu``) — the activated [M, I] intermediate stays on
+    chip, re-quantized to int8;
+  * ``act_quant`` off (weight-only ``int8``): the fused weight-only kernel K4
+    (``csrc/fused_ffn_wonly.cu``) — the intermediate stays on chip, rounded to
+    x's dtype, as the JAX package's ``_kernel_wonly``;
 
-On a CPU tensor :func:`fused_ffn_w8a8` runs :func:`fused_ffn_w8a8_plain`, the
-same arithmetic in PyTorch.
+fp weights or fp32 run plain ``linear`` layers (weight-only INT8 ones through
+K3). On a CPU tensor each kernel wrapper runs its plain version, the same
+arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from .layers import act_quant_enabled, activation, gelu_tanh, int_mm, linear, ro
 
 Params = dict[str, Any]
 
-launches = 0  # kernel launches since the last reset (the main path's proof)
+launches = 0  # K2 launches since the last reset (the main path's proof)
+launches_wonly = 0  # K4 launches since the last reset
 
 
 _GELUS = ("gelu", "gelu_new", "gelu_pytorch_tanh")
@@ -45,39 +47,73 @@ def fused_ffn_w8a8_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="ge
     return y.to(x.dtype)
 
 
+def fused_ffn_wonly_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
+    """K4's arithmetic in PyTorch: x [M, H] -> [M, H] in x's dtype. fp32
+    sums of x times the upcast weight; the activated intermediate is rounded
+    to x's dtype before the down product."""
+    h = (x.float() @ wq_up.float()) * s_up + b_up
+    h = _activate(h, hidden_act).to(x.dtype)
+    y = (h.float() @ wq_dn.float()) * s_dn + b_dn
+    return y.to(x.dtype)
+
+
+def _check_ffn_args(name, x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act):
+    if hidden_act not in _GELUS:
+        raise ValueError(f"{name} kernel implements tanh-gelu only, got {hidden_act!r}")
+    M, H = x.shape
+    I = wq_up.shape[1]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous bf16 [M, H], got {x.dtype}")
+    for arg, t, shape, dt in (
+        ("wq_up", wq_up, (H, I), torch.int8), ("s_up", s_up, (I,), torch.float32),
+        ("b_up", b_up, (I,), torch.float32), ("wq_dn", wq_dn, (I, H), torch.int8),
+        ("s_dn", s_dn, (H,), torch.float32), ("b_dn", b_dn, (H,), torch.float32),
+    ):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: {arg} must be contiguous {dt} {shape} on {x.device}")
+    if H % 4 or I % 4:
+        raise ValueError(f"{name}: H and I must be multiples of 4")
+    return M, H, I
+
+
+def _launch_ffn(entry: str, x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, M, H, I):
+    lib = _build.lib()
+    smem = getattr(lib, entry + "_smem")(H, I)
+    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+    if smem + 256 > limit:
+        raise ValueError(f"{entry}: needs {smem} B of shared memory, the device allows {limit}")
+    out = torch.empty_like(x)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), wq_up.data_ptr(), s_up.data_ptr(), b_up.data_ptr(), wq_dn.data_ptr(),
+        s_dn.data_ptr(), b_dn.data_ptr(), out.data_ptr(), M, H, I, _build.stream_ptr(x),
+    )
+    _build.check(rc, entry)
+    return out
+
+
 def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
     """Fused w8a8 FFN. x: [M, H] bf16; wq_up int8 [H, I]; s_up, b_up f32 [I];
     wq_dn int8 [I, H]; s_dn, b_dn f32 [H]."""
     if not x.is_cuda:
         return fused_ffn_w8a8_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
     global launches
-    if hidden_act not in _GELUS:
-        raise ValueError(f"fused_ffn_w8a8 kernel implements tanh-gelu only, got {hidden_act!r}")
-    M, H = x.shape
-    I = wq_up.shape[1]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"fused_ffn_w8a8: x must be contiguous bf16 [M, H], got {x.dtype}")
-    for name, t, shape, dt in (
-        ("wq_up", wq_up, (H, I), torch.int8), ("s_up", s_up, (I,), torch.float32),
-        ("b_up", b_up, (I,), torch.float32), ("wq_dn", wq_dn, (I, H), torch.int8),
-        ("s_dn", s_dn, (H,), torch.float32), ("b_dn", b_dn, (H,), torch.float32),
-    ):
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"fused_ffn_w8a8: {name} must be contiguous {dt} {shape} on {x.device}")
-    if H % 4 or I % 4:
-        raise ValueError("fused_ffn_w8a8: H and I must be multiples of 4")
-    lib = _build.lib()
-    smem = lib.gct_fused_ffn_w8a8_smem(H, I)
-    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if smem + 256 > limit:
-        raise ValueError(f"fused_ffn_w8a8: needs {smem} B of shared memory, the device allows {limit}")
-    out = torch.empty_like(x)
-    rc = lib.gct_fused_ffn_w8a8(
-        x.data_ptr(), wq_up.data_ptr(), s_up.data_ptr(), b_up.data_ptr(), wq_dn.data_ptr(),
-        s_dn.data_ptr(), b_dn.data_ptr(), out.data_ptr(), M, H, I, _build.stream_ptr(x),
-    )
-    _build.check(rc, "fused_ffn_w8a8")
+    args = (x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn)
+    M, H, I = _check_ffn_args("fused_ffn_w8a8", *args, hidden_act)
+    out = _launch_ffn("gct_fused_ffn_w8a8", *args, M, H, I)
     launches += 1
+    return out
+
+
+def fused_ffn_wonly(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
+    """Fused weight-only INT8 FFN (K4), same arguments as
+    :func:`fused_ffn_w8a8`."""
+    if not x.is_cuda:
+        return fused_ffn_wonly_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
+    global launches_wonly
+    args = (x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn)
+    M, H, I = _check_ffn_args("fused_ffn_wonly", *args, hidden_act)
+    out = _launch_ffn("gct_fused_ffn_wonly", *args, M, H, I)
+    launches_wonly += 1
     return out
 
 
@@ -90,10 +126,11 @@ def fused_ffn(p_up: Params, p_down: Params, x: torch.Tensor, hidden_act: str,
               compute_dtype: torch.dtype) -> torch.Tensor:
     """y = act(x @ up) @ down for x [..., H] (routing in the module doc)."""
     quantized = "w_q" in p_up and "w_q" in p_down
-    if quantized and act_quant_enabled() and compute_dtype != torch.float32:
+    if quantized and compute_dtype != torch.float32:
+        kernel = fused_ffn_w8a8 if act_quant_enabled() else fused_ffn_wonly
         *lead, H = x.shape
         I = p_up["w_q"].shape[1]
-        y = fused_ffn_w8a8(
+        y = kernel(
             x.reshape(-1, H).to(compute_dtype).contiguous(),
             p_up["w_q"], p_up["scale"].float(), _bias_f32(p_up, I, x),
             p_down["w_q"], p_down["scale"].float(), _bias_f32(p_down, H, x),

@@ -15,6 +15,7 @@ import torch
 
 from gliclass.c_tpu_torch.config import BackboneConfig, GLiClassConfig, RuntimeConfig
 from gliclass.c_tpu_torch.engine import InferenceEngine
+from gliclass.c_tpu_torch.ops import causal_attention as CA
 from gliclass.c_tpu_torch.ops import fused_attention as FA
 from gliclass.c_tpu_torch.ops import fused_ffn as FF
 from gliclass.c_tpu_torch.ops import int8_matmul as IM
@@ -138,6 +139,130 @@ def test_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
             mod.launches = 0
         got = card.run(batch, 4)
         assert all(mod.launches > 0 for mod in kernels)
+        want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=3e-2)
+
+
+@pytest.mark.parametrize("M,H,I", [(1, 128, 256), (40, 128, 256), (300, 768, 3072), (8192, 768, 3072)])
+def test_ffn_wonly_kernel_matches_plain(dev, M, H, I):
+    args = _ffn_args(dev, M, H, I, M + 1)
+    FF.launches_wonly = 0
+    got = FF.fused_ffn_wonly(*args).float()
+    assert FF.launches_wonly == 1
+    want = FF.fused_ffn_wonly_plain(*args).float()
+    torch.cuda.synchronize()
+    # a few bf16 ulps of the output: the fp32 sums differ in order, which can
+    # move one bf16 step of the rounded intermediate
+    tol = 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_ffn_kernels_check_inputs(dev):
+    x, wu, su, bu, wd, sd, bd, _ = _ffn_args(dev, 8, 128, 256, 0)
+    with pytest.raises(ValueError, match="tanh-gelu"):
+        FF.fused_ffn_wonly(x, wu, su, bu, wd, sd, bd, "silu")
+    with pytest.raises(ValueError, match="bf16"):
+        FF.fused_ffn_wonly(x.float(), wu, su, bu, wd, sd, bd, "gelu")
+
+
+def _causal_inputs(dev, B, nkv, g, S, d, dtype, seed):
+    """q as a head view of a [B, S, nh*d] projection (the model's layout),
+    k and v contiguous; ragged right padding and a padded batch row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, nkv * g * d, generator=gen, device=dev).to(dtype)
+    qg = q.reshape(B, S, nkv, g, d).permute(0, 2, 3, 1, 4)
+    k, v = (torch.randn(B, nkv, S, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+    if B > 1:
+        mask[1, 1:] = 0               # a padded batch row: key 0 only
+    if B > 2:
+        mask[2, max(1, S // 2):] = 0  # a ragged row
+    return qg, k, v, mask
+
+
+@pytest.mark.parametrize("S", [1, 12, 56, 64, 65, 88, 128, 130, 512])
+@pytest.mark.parametrize("nkv,g,d", [(2, 6, 128), (4, 1, 128), (1, 4, 64), (2, 2, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_causal_kernel_matches_plain(dev, S, nkv, g, d, dtype, tol):
+    qg, k, v, mask = _causal_inputs(dev, 3, nkv, g, S, d, dtype, S + d)
+    scale = 1.0 / math.sqrt(d)
+    CA.launches = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, scale)
+    assert CA.launches == 1
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    # the output's memory is [B, S, nh, d]: merging heads is a view
+    assert got.permute(0, 3, 1, 2, 4).is_contiguous()
+
+
+def test_causal_kernel_row_without_valid_key_is_zero(dev):
+    qg, k, v, mask = _causal_inputs(dev, 1, 2, 2, 70, 64, torch.float32, 0)
+    mask[0, :66] = 0  # the first key tile wholly masked; rows 0..65 see no valid key
+    got = CA.causal_flash_attention(qg, k, v, mask, 0.125)
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert (got[..., :66, :] == 0).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_causal_kernel_checks_inputs(dev):
+    qg, k, v, mask = _causal_inputs(dev, 2, 2, 2, 16, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="int32"):
+        CA.causal_flash_attention(qg, k, v, mask.long(), 0.125)
+    with pytest.raises(TypeError, match="share"):
+        CA.causal_flash_attention(qg, k.bfloat16(), v, mask, 0.125)
+    big = torch.zeros(2, 1, 1, 16, 160, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        CA.causal_flash_attention(big, big[:, :, 0], big[:, :, 0], mask, 0.1)
+
+
+def test_decoder_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
+    """A small qwen2-style model with the kernel's head width (d=128, g=2),
+    on the card by default, against the same engine on the CPU."""
+    from gliclass.c_tpu_torch.ops.quant import quantize_dense_param
+
+    H, nh, nkv, d, I, L = 256, 2, 1, 128, 512, 2
+    bb = BackboneConfig(model_type="qwen2", vocab_size=300, hidden_size=H, num_hidden_layers=L,
+                        num_attention_heads=nh, num_key_value_heads=nkv, intermediate_size=I,
+                        hidden_act="silu", relative_attention=False, attention_bias=True)
+    cfg = GLiClassConfig(hidden_size=H, class_token_index=7, prompt_first=False, backbone=bb)
+    rng = np.random.default_rng(1)
+
+    def dense(i, o, bias=False, std=0.05):
+        p = {"w": rng.normal(0, std, (L, i, o)).astype(np.float32)}
+        if bias:
+            p["b"] = rng.normal(0, 0.02, (L, o)).astype(np.float32)
+        return p
+
+    norm = lambda lead=(L,): {"scale": (1 + rng.normal(0, 0.05, (*lead, H))).astype(np.float32)}
+    params = quantize_tree({
+        "backbone": {
+            "embeddings": {"word": rng.normal(size=(300, H)).astype(np.float32)},
+            "layers": {"attn": {"q": dense(H, nh * d, True), "k": dense(H, nkv * d, True),
+                                "v": dense(H, nkv * d, True), "o": dense(nh * d, H)},
+                       "attn_norm": norm(),
+                       "mlp": {"gate": dense(H, I), "up": dense(H, I), "down": dense(I, H)},
+                       "mlp_norm": norm()},
+            "final_norm": norm(()),
+        },
+        "head": {p: {"linear_1": quantize_dense_param({"w": rng.normal(0, 0.02, (H, 4 * H)).astype(np.float32)}),
+                     "linear_2": {"w": rng.normal(0, 0.01, (4 * H, H)).astype(np.float32)}}
+                 for p in ("text_projector", "classes_projector")},
+    })
+    ids = rng.integers(10, 290, size=(5, 70)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[3, 40:] = 0
+    ids[:, 30:36:2] = 7
+    batch = TokenizedBatch(ids, mask, mask.sum(1).astype(np.int32))
+    for quant_mode in ("int8-dynamic", "int8"):
+        rt = RuntimeConfig(batch_size=8, compute_dtype="bfloat16", quant_mode=quant_mode)
+        card = InferenceEngine(cfg, params, rt)
+        CA.launches = 0
+        got = card.run(batch, 4)
+        assert CA.launches == L
         want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, atol=3e-2)

@@ -171,12 +171,18 @@ def test_unported_features_raise(np_params, over, exc):
 
 
 def test_decoder_backbone_raises(np_params):
+    """Decoder backbones run (tests/test_torch_llama.py); an unknown backbone
+    and the decoder's unported head features raise."""
     _, tc = tiny_cfgs()
-    tc = dataclasses.replace(tc, backbone=dataclasses.replace(tc.backbone, model_type="llama"))
     ids, mask = make_batch()
-    with pytest.raises(NotImplementedError, match="llama"):
-        t_forward(params_from_numpy(np_params[0], "cpu"), torch.from_numpy(ids),
-                  torch.from_numpy(mask), tc, 4)
+    args = (params_from_numpy(np_params[0], "cpu"), torch.from_numpy(ids), torch.from_numpy(mask))
+    bad = dataclasses.replace(tc, backbone=dataclasses.replace(tc.backbone, model_type="t5"))
+    with pytest.raises(ValueError, match="t5"):
+        t_forward(*args, bad, 4)
+    llama = dataclasses.replace(tc, use_lstm=True,
+                                backbone=dataclasses.replace(tc.backbone, model_type="llama"))
+    with pytest.raises(NotImplementedError, match="use_lstm"):
+        InferenceEngine(llama, np_params[0], tcfg.RuntimeConfig(), device="cpu")
 
 
 def test_fuse_qkv_is_math_identical(np_params):

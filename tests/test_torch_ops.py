@@ -259,15 +259,43 @@ def test_fused_ffn_plain_matches_pallas_interpret():
     np.testing.assert_allclose(_np(got), _np(want), atol=2 * BF16_RTOL * np.abs(_np(want)).max())
 
 
+def test_fused_ffn_wonly_plain_matches_pallas_interpret():
+    """K4's plain version vs the JAX Pallas weight-only kernel in interpret
+    mode (M=16, H=128, I=256). Both sum exact bf16 x int8 products in fp32
+    and round the activated intermediate to bf16; a last-bit difference of
+    the fp32 sum or tanh can move one bf16 step of h: 2 bf16 ulps of the
+    output."""
+    rng = np.random.default_rng(13)
+    M, H, I = 16, 128, 256
+    x = rng.normal(size=(M, H)).astype(np.float32)
+    wu, su = jq.quantize_weight(rng.normal(0, 0.05, (H, I)).astype(np.float32))
+    wd, sd = jq.quantize_weight(rng.normal(0, 0.05, (I, H)).astype(np.float32))
+    bu = rng.normal(0, 0.05, I).astype(np.float32)
+    bd = rng.normal(0, 0.05, H).astype(np.float32)
+    want = _fused_ffn_pallas(
+        _j(x, "bfloat16"), jnp.asarray(wu), jnp.asarray(su), jnp.asarray(bu),
+        jnp.asarray(wd), jnp.asarray(sd), jnp.asarray(bd),
+        hidden_act="gelu", act_quant=False, bm=8, out_dtype=jnp.bfloat16, interpret=True,
+    )
+    t = torch.from_numpy
+    before = tffn.launches_wonly
+    got = tffn.fused_ffn_wonly(_t(x, "bfloat16"), t(wu), t(su), t(bu), t(wd), t(sd), t(bd), "gelu")
+    assert tffn.launches_wonly == before  # a CPU tensor runs the plain version
+    assert got.dtype == torch.bfloat16 and got.shape == (M, H)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2 * BF16_RTOL * np.abs(_np(want)).max())
+
+
 @pytest.mark.parametrize("mode", ["w8a8", "weight-only", "fp32"])
 def test_fused_ffn_routes_match_jax(mode):
-    """The port's fused_ffn on each route vs the JAX composed FFN."""
+    """The port's fused_ffn on each route vs the JAX fused_ffn: its fused
+    Pallas form (interpret mode) for INT8 in bf16, which the port's kernels
+    K2 and K4 follow, and its composed form in fp32."""
     from gliclass.c_tpu.ops.fused_ffn import fused_ffn as j_fused_ffn
 
     rng = np.random.default_rng(12)
-    x = rng.normal(size=(2, 8, 64)).astype(np.float32)
-    up = {k: np.asarray(v) for k, v in jq.quantize_dense_param(_dense(rng, 64, 128)).items()}
-    dn = {k: np.asarray(v) for k, v in jq.quantize_dense_param(_dense(rng, 128, 64)).items()}
+    x = rng.normal(size=(2, 8, 128)).astype(np.float32)
+    up = {k: np.asarray(v) for k, v in jq.quantize_dense_param(_dense(rng, 128, 256)).items()}
+    dn = {k: np.asarray(v) for k, v in jq.quantize_dense_param(_dense(rng, 256, 128)).items()}
     dtype = "float32" if mode == "fp32" else "bfloat16"
     aq = mode == "w8a8"
     with tl.act_quant(aq):
@@ -275,11 +303,11 @@ def test_fused_ffn_routes_match_jax(mode):
                              _t(x, dtype), "gelu", TDT[dtype])
     with jl.act_quant(aq):
         want = j_fused_ffn(_tree(up, jnp.asarray), _tree(dn, jnp.asarray), _j(x, dtype),
-                           "gelu", JDT[dtype])
+                           "gelu", JDT[dtype], interpret=True)
     if mode == "fp32":
         _close(got, want, dtype)
     else:
-        # JAX composes the w8a8 linears with a bf16 intermediate and its
-        # weight-only form rounds dequantized weights to bf16; the port keeps
-        # the fused kernel's fp32 intermediate: a few bf16 ulps apart.
+        # Same structure in both; the tanh of the two libraries and the fp32
+        # sum order can move one int8 (w8a8) or bf16 (weight-only) step of
+        # the intermediate: a few bf16 ulps of the output.
         np.testing.assert_allclose(_np(got), _np(want), atol=8 * BF16_RTOL * np.abs(_np(want)).max())

@@ -12,7 +12,9 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    of its operations over the card's peak for their type and its bytes
    (each input read once, each output written once) over the HBM rate.
    K1 flash disentangled attention, K2 fused w8a8 FFN, K3 INT8-weight
-   matmul, K4 fused weight-only FFN, K5 causal GQA flash attention.
+   matmul, K4 fused weight-only FFN, K5 causal GQA flash attention, K6 the
+   bias route's absolute position table (exact), K7 its softmax over
+   precomputed biases.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
@@ -22,15 +24,25 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    memory, and agreement of the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
    launch counts of K4 (12 per forward) and K3, agreement with the CPU.
-5. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
+5. The two DeBERTa attention routes on the same model, "int8-dynamic":
+   the whole forward at [128, 512] and [16, 512] with the route forced to
+   flash (K1) and to bias (K6 + bias products + K7), classify_job texts/s on
+   128 texts of the 512 bucket at batch 128, launches (K6 24 and K7 12 per
+   forward, K1 none on the bias run), peak memory, a profile of the bias
+   run, and fp32 hidden states bias against flash (1e-4).
+6. Serve path: GLiClassServer on 127.0.0.1 (the same model, attn_route
+   "bias", warmed up), 16 client threads posting 256 requests over HTTP;
+   each answered once, scores against classify_job, K6/K7 launches per
+   forward, /metrics latency percentiles and requests/s.
+7. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
    28 layers, H=1536, 12 query / 2 kv heads, d=128, I=8960, vocab 151,936),
    random INT8 weights made layer by layer, "int8-dynamic" through
    classify_job; texts/s, stages, profile, peak memory; K5 launched 28 times
    per forward; the first 4 texts against the CPU.
-6. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
+8. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
    bias, vocab 32,000), "int8-dynamic", a small job; K5 launches and
    agreement with the CPU.
-7. One JSON line of kernel records, the card line, and the final status line.
+9. One JSON line of kernel records, the card line, and the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
 """
@@ -342,6 +354,116 @@ def check_causal(gen: torch.Generator, dev) -> dict:
                 shape="sum of B=64 S=128, B=16 S=512 (nkv=2 g=6 d=128 bf16)")
 
 
+def check_abs_pos_table(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    h, d = 12, 64
+    rec = None
+    for S in (88, 128, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            pos = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
+            out = FA.abs_pos_table(pos, S)
+            ref = FA.abs_pos_table_plain(pos, S)
+            torch.cuda.synchronize()
+            # A copy of values: the kernel must equal the gather exactly.
+            same = out.shape == ref.shape and torch.equal(out, ref)
+            err = 0.0 if same else float("inf")
+            if out.shape == ref.shape:
+                err = (out.float() - ref.float()).abs().max().item()
+            log(f"K6 abs_pos_table h={h} S={S} d={d} {str(dtype)[6:]}: "
+                f"{'equal' if same else 'DIFFERENT'} to its plain version (max|diff| {err:.3e}, tol 0: exact)")
+            if not same:
+                fail(f"K6 S={S} {dtype}: kernel differs from its plain version")
+            if S != 512 or dtype != torch.bfloat16:
+                continue
+            idx = FA.rel_index(S, dev)
+            ms = time_ms(lambda: FA.abs_pos_table(pos, S))
+            plain = time_ms(lambda: FA.abs_pos_table_plain(pos, S), iters=10)
+            lib = time_ms(lambda: pos[:, idx])  # one gather, [h, S, S, d] layout
+            nbytes = h * (2 * S - 1) * d * 2 + h * S * S * d * 2
+            bms, by = bound_ms(0.0, "bf16", nbytes)
+            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | pos_rel[:, idx] {lib:.4f} ms | "
+                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
+                       shape=f"one table, h={h} S={S} d={d} bf16")
+    return rec
+
+
+def bias_inputs(gen: torch.Generator, dev, B: int, S: int, dtype, ragged: bool):
+    """K7's inputs as the bias route passes them: q/k/v head views of one
+    [B, S, 3H] projection; c2p and p2c as views of [h, S, B, S] products
+    (c2p contiguous in j, p2c in i); a key mask with ragged lengths."""
+    h, d = 12, 64
+    H = h * d
+    qkv = torch.randn(B, S, 3 * H, generator=gen, device=dev).to(dtype)
+    q, k, v = (qkv[..., i * H:(i + 1) * H].reshape(B, S, h, d).transpose(1, 2) for i in range(3))
+    c2p = (4 * torch.randn(h, S, B, S, generator=gen, device=dev)).to(dtype).permute(2, 0, 1, 3)
+    p2c = (4 * torch.randn(h, S, B, S, generator=gen, device=dev)).to(dtype).permute(2, 0, 3, 1)
+    lengths = torch.full((B,), S, device=dev)
+    if ragged:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lengths[0] = S
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+    return q, k, v, c2p, p2c, mask
+
+
+def check_bias_attention(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    h, d = 12, 64
+    scale = math.sqrt(d * 3)
+    # bf16: the fp32 score sums run in another order than the plain version's
+    # matmul, and p is rounded to bf16 before p.v, so an element near a
+    # rounding boundary can move one bf16 step (as for K1).
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    worst = 0.0
+    # (B, S, dtype, ragged, timed): the two 512-bucket batches of the route
+    # measurement, a ragged short bucket, and fp32.
+    cases = ((128, 512, torch.bfloat16, True, True), (16, 512, torch.bfloat16, True, True),
+             (16, 88, torch.bfloat16, True, False), (16, 88, torch.float32, True, False),
+             (8, 512, torch.float32, True, False))
+    for B, S, dtype, ragged, timed in cases:
+        q, k, v, c2p, p2c, mask = bias_inputs(gen, dev, B, S, dtype, ragged)
+        out = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, scale)
+        ref = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"K7 B={B} S={S} {dtype}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"K7 bias_fused_attention B={B} h={h} S={S} d={d} {str(dtype)[6:]} "
+            f"{'ragged keys' if ragged else 'full'}: max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
+        if err > tol[dtype]:
+            fail(f"K7 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
+        del ref
+        if not timed:
+            continue
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.bias_fused_attention(q, k, v, c2p, p2c, mask, scale))
+        plain = time_ms(lambda: FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, scale), iters=5)
+        # Yardstick only: one PyTorch call for the same function, the biases
+        # summed (and masked) outside the timed call.
+        bias = (c2p.float() + p2c.float()) * (1.0 / scale)
+        bias = bias.masked_fill(mask[:, None, None, :] == 0, float("-inf")).to(dtype)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=1.0 / scale))
+        del bias
+        # q.k and p.v over every (i, j) pair, 2 operations per multiply-add;
+        # q, k, v read and out written once, both biases read once.
+        ops = 4.0 * B * h * S * S * d
+        nbytes = 4 * B * h * S * d * 2 + 2 * B * h * S * S * c2p.element_size() + B * S * 4
+        bms, by = bound_ms(ops, "bf16", nbytes)
+        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
+            f"{lib:.4f} ms | bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
+                         ("nbytes", nbytes)):
+            tot[key] += val
+        torch.cuda.empty_cache()
+    bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
+                bound_by=by, max_abs_err=worst, shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3/4: main path at full width
 # ---------------------------------------------------------------------------
@@ -480,7 +602,9 @@ def counters() -> dict:
             "fused_ffn_w8a8": (fused_ffn, "launches"),
             "int8_matmul": (int8_matmul, "launches"),
             "fused_ffn_wonly": (fused_ffn, "launches_wonly"),
-            "causal_flash_attention": (causal_attention, "launches")}
+            "causal_flash_attention": (causal_attention, "launches"),
+            "abs_pos_table": (fused_attention, "launches_table"),
+            "bias_fused_attention": (fused_attention, "launches_bias")}
 
 
 def reset_counts() -> None:
@@ -523,13 +647,14 @@ def profile_job(pipe, job, wall_s: float) -> None:
 
 def hidden_states(engine, batch) -> torch.Tensor:
     """The backbone's output [B, S, H] (fp32, on the host) for a tokenized
-    batch, in the engine's precision mode."""
+    batch, in the engine's precision mode and attention route."""
     from gliclass.c_tpu_torch.models.gliclass import encode_backbone
     from gliclass.c_tpu_torch.ops.layers import act_quant
 
     ids, mask = engine._device_inputs(batch.input_ids, batch.attention_mask)
     with torch.inference_mode(), act_quant(engine._act_quant):
-        h = encode_backbone(engine.params["backbone"], ids, mask, engine.cfg, engine.compute_dtype)
+        h = encode_backbone(engine.params["backbone"], ids, mask, engine.cfg, engine.compute_dtype,
+                            engine.runtime.attn_route)
     return h.float().cpu()
 
 
@@ -562,14 +687,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
                        quant_mode=quant_mode, seq_buckets=SEQ_LADDER, label_buckets=(8,))
     job = parse_job(job_dict)
     engine = InferenceEngine(cfg, qparams, rt, device=dev)
-    forwards = [0]
-    step = engine._forward
-
-    def counted_forward(*a, **kw):
-        forwards[0] += 1
-        return step(*a, **kw)
-
-    engine._forward = counted_forward
+    forwards = count_forwards(engine)
     pipe = ZeroShotClassificationPipeline(engine, tok, rt)
     t0 = time.perf_counter()
     pipe.classify_job(job)  # first pass: library handles, allocator growth
@@ -577,12 +695,12 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     cold = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    forwards[0] = 0
+    forwards.clear()
     t0 = time.perf_counter()
     out = pipe.classify_job(job)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    counts, n_fwd = read_counts(), forwards[0]
+    counts, n_fwd = read_counts(), len(forwards)
     for _ in range(2):  # spread of the same pass
         t0 = time.perf_counter()
         pipe.classify_job(job)
@@ -650,6 +768,256 @@ def expect_launches(counts: dict, name: str, want: int, label: str) -> None:
         fail(f"{label}: {name} launched {counts[name]} times, expected {want}")
 
 
+def expect_none(counts: dict, name: str, label: str) -> None:
+    if counts[name] != 0:
+        fail(f"{label}: {name} launched {counts[name]} times, expected none")
+
+
+def count_forwards(engine) -> list:
+    """Wrap ``engine._forward`` to record the (rows, seq) of every forward."""
+    shapes = []
+    step = engine._forward
+
+    def counted(ids, mask, max_labels):
+        shapes.append(tuple(ids.shape))
+        return step(ids, mask, max_labels)
+
+    engine._forward = counted
+    return shapes
+
+
+def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
+    """The flash route (K1) against the bias route (K6 + bias products + K7)
+    on gliclass-base int8-dynamic at full width: the whole forward at
+    [128, 512] and [16, 512] (CUDA events, turns alternated), classify_job
+    on 128 texts of the 512 bucket at batch 128 (texts/s, launches, peak
+    memory), fp32 hidden states of two texts route against route, and a
+    profile of the bias run."""
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    L = cfg.backbone.num_hidden_layers
+    job_dict = make_job(rng, 0, 128)
+    rt = RuntimeConfig(batch_size=128, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
+                       seq_buckets=SEQ_LADDER, label_buckets=(8,))
+    engines = {"flash": InferenceEngine(cfg, qparams, dataclasses.replace(rt, attn_route="flash"), device=dev)}
+    engines["bias"] = InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt, attn_route="bias"),
+                                      device=dev)
+    batch = tok.encode_batch(pack_prompts(job_dict["texts"], job_dict["labels"], True, cfg.prompt_first),
+                             max_length=512, pad_to=512)
+    if batch.seq_length != 512 or int(batch.lengths.min()) <= 384:
+        fail(f"route phase: the long texts do not all fall in the 512 bucket ({batch.lengths.min()})")
+    ids, mask = engines["flash"]._device_inputs(batch.input_ids, batch.attention_mask)
+
+    fwd = {}
+    for B in (128, 64, 32, 16):
+        times = {"flash": [], "bias": []}
+        for order in (("flash", "bias"), ("bias", "flash")):
+            for r in order:
+                times[r].append(time_ms(lambda: engines[r]._forward(ids[:B], mask[:B], 8), iters=3, warmup=1))
+        for r in ("flash", "bias"):
+            fwd[(r, B)] = statistics.median(times[r])
+        log(f"forward [{B}, 512] gliclass-base int8-dynamic: flash {fwd[('flash', B)]:.3f} ms "
+            f"(turns {', '.join(f'{t:.3f}' for t in times['flash'])}), bias {fwd[('bias', B)]:.3f} ms "
+            f"(turns {', '.join(f'{t:.3f}' for t in times['bias'])})")
+
+    job = parse_job(job_dict)
+    rate, counts = {}, {}
+    for r in ("flash", "bias", "bias", "flash"):
+        pipe = ZeroShotClassificationPipeline(engines[r], tok, engines[r].runtime)
+        shapes = count_forwards(engines[r])
+        pipe.classify_job(job)  # warm: allocator growth at this shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        shapes.clear()
+        t0 = time.perf_counter()
+        out = pipe.classify_job(job)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del engines[r]._forward  # back to the class's forward
+        if out.failures or not np.isfinite(out.probs).all():
+            fail(f"route phase {r}: failures {out.failures} or non-finite probabilities")
+        rate.setdefault(r, []).append(128 / wall)
+        if r in counts:
+            continue
+        counts[r] = read_counts()
+        n_fwd = len(shapes)
+        log(f"{r} route: 128 texts of the 512 bucket in {wall:.4f} s = {128 / wall:.1f} texts/s; "
+            f"forwards {shapes}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {json.dumps(counts[r])}")
+        if r == "bias":
+            expect_launches(counts[r], "abs_pos_table", 2 * L * n_fwd, "bias route")
+            expect_launches(counts[r], "bias_fused_attention", L * n_fwd, "bias route")
+            expect_none(counts[r], "flash_disentangled_attention", "bias route")
+        else:
+            expect_launches(counts[r], "flash_disentangled_attention", L * n_fwd, "flash route")
+            expect_none(counts[r], "bias_fused_attention", "flash route")
+    for r in ("flash", "bias"):
+        log(f"{r} route texts/s, turns flash-bias-bias-flash: {', '.join(f'{x:.1f}' for x in rate[r])}")
+    profile_job(ZeroShotClassificationPipeline(engines["bias"], tok, engines["bias"].runtime), job,
+                128 / statistics.mean(rate["bias"]))
+
+    # fp32 (INT8 weight-only) hidden states of two texts, route against route.
+    two = tok.encode_batch(pack_prompts(job_dict["texts"][:2], job_dict["labels"], True, cfg.prompt_first),
+                           max_length=512, pad_to=512)
+    rt32 = dataclasses.replace(rt, compute_dtype="float32", quant_mode="int8")
+    hs = {r: hidden_states(InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt32, attn_route=r),
+                                           device=dev), two) for r in ("flash", "bias")}
+    valid = torch.from_numpy(two.attention_mask).bool()
+    herr = ((hs["bias"][valid] - hs["flash"][valid]).norm() / hs["flash"][valid].norm()).item()
+    log(f"fp32 hidden states, bias route vs flash route on the card, 2 texts: rel L2 {herr:.3e} (tol 1e-4)")
+    if not herr <= 1e-4:
+        fail(f"route phase: bias and flash hidden states differ by {herr} (relative)")
+    from gliclass.c_tpu_torch.ops.fused_attention import attention_route
+
+    log("auto route at S=512: " + ", ".join(f"B={B} {attention_route(512, B, 64)}" for B in (16, 32, 64, 128)))
+    log("route decision input, forward ms bias vs flash at S=512: " + "; ".join(
+        f"B={B} {fwd[('bias', B)]:.3f} vs {fwd[('flash', B)]:.3f} "
+        f"({'bias' if fwd[('bias', B)] < fwd[('flash', B)] else 'flash'} faster)" for B in (16, 32, 64, 128)))
+    return dict(forward_ms={f"{r} {B}": v for (r, B), v in fwd.items()}, texts_per_s=rate, hidden_rel=herr)
+
+
+def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, int]:
+    """GLiClassServer on 127.0.0.1 over the bias route: 16 client threads
+    post 256 requests over HTTP (64 carrying 2-4 texts of the 512 bucket,
+    each thread's first four, so that the 512 bucket sees batches above 16;
+    the rest 1-4 short texts), all with the 8 shared labels and threshold 0.
+    Each request must be answered once, with its own texts; the scores must
+    agree with classify_job on the same engine (bf16 bound 0.15); K6 and K7
+    must launch 24 and 12 times per forward, K1 never. A second pass of the
+    same traffic runs under the profiler for the device's busy share."""
+    import threading
+    import urllib.request
+
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.serving import GLiClassServer
+
+    L = cfg.backbone.num_hidden_layers
+    rt = RuntimeConfig(batch_size=64, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
+                       seq_buckets=SEQ_LADDER, label_buckets=(8,), attn_route="bias")
+    engine = InferenceEngine(cfg, qparams, rt, device=dev)
+    t0 = time.perf_counter()
+    n_warm = engine.warmup(max_seq=512)
+    log(f"warmup: {n_warm} steps (every seq and row bucket, bias route) in {time.perf_counter() - t0:.1f} s")
+    labels = make_job(rng, 0, 0)["labels"][0]
+    n_threads, per_thread = 16, 16
+    bodies = []  # bodies[t][m]
+    for t in range(n_threads):
+        reqs = []
+        for m in range(per_thread):
+            long = m < 4
+            n = int(rng.integers(2, 5)) if long else int(rng.integers(1, 5))
+            texts = make_job(rng, 0 if long else n, n if long else 0)["texts"]
+            reqs.append({"texts": texts, "labels": labels, "threshold": 0.0})
+        bodies.append(reqs)
+
+    shapes = count_forwards(engine)
+    # A 50 ms fill window: with 16 closed-loop clients and the default 5 ms a
+    # round holds only what arrives in 5 ms, and the 512 bucket never sees
+    # more than 16 rows.
+    server = GLiClassServer(engine, tok, rt, host="127.0.0.1", port=0, max_wait_ms=50.0)
+    server.start()
+
+    def drive() -> tuple[dict, float]:
+        answers, errors = {}, []
+        lock = threading.Lock()
+        barrier = threading.Barrier(n_threads)
+
+        def client(t):
+            try:
+                barrier.wait(timeout=60)
+                for m, body in enumerate(bodies[t]):
+                    req = urllib.request.Request(f"http://127.0.0.1:{server.port}/classify",
+                                                 data=json.dumps(body).encode(),
+                                                 headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=300) as resp:
+                        got = json.loads(resp.read())
+                    with lock:
+                        if (t, m) in answers:
+                            errors.append(f"request {t}/{m} answered twice")
+                        answers[(t, m)] = got
+            except Exception as e:  # reported below, and the phase fails
+                with lock:
+                    errors.append(f"client {t}: {type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or errors:
+            server.close()
+            fail(f"serve path: {errors[:5]} (threads alive: {sum(th.is_alive() for th in threads)})")
+        return answers, wall
+
+    reset_counts()
+    shapes.clear()
+    answers, wall = drive()
+    counts, n_fwd = read_counts(), len(shapes)
+    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=30) as resp:
+        metrics = json.loads(resp.read())
+    # The same traffic again under the profiler (device activity only), for
+    # the device's busy share; latencies and counts come from the pass above.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = drive()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    server.close()
+    n_req = n_threads * per_thread
+    if len(answers) != n_req:
+        fail(f"serve path: {len(answers)} of {n_req} requests answered")
+    n_texts = sum(len(b["texts"]) for reqs in bodies for b in reqs)
+    long_rows = max((b for b, s in shapes if s == 512), default=0)
+    lat = metrics["latency"]
+    log(f"serve: {n_req} requests ({n_texts} texts) from {n_threads} threads in {wall:.3f} s = "
+        f"{n_req / wall:.1f} requests/s, {n_texts / wall:.1f} texts/s; latency p50 {lat['p50_ms']} ms, "
+        f"p95 {lat['p95_ms']} ms, p99 {lat['p99_ms']} ms (/metrics: {json.dumps(metrics)})")
+    log(f"   forwards {n_fwd} (rows x seq: {sorted(set(shapes))}); largest 512-bucket batch {long_rows} rows; "
+        f"launches {json.dumps(counts)}")
+    log(f"   profiled pass of the same traffic: {wall_prof:.3f} s, device busy {busy:.3f} s "
+        f"= {100 * busy / wall_prof:.1f}%" if busy else "   profile: no device time recorded (not measured)")
+    if metrics["requests"] != n_req or metrics["errors"] != 0:
+        fail(f"serve path: /metrics counts {metrics['requests']} requests, {metrics['errors']} errors")
+    if long_rows <= 16:
+        fail(f"serve path: the 512 bucket saw at most {long_rows} rows, not above 16")
+    expect_launches(counts, "abs_pos_table", 2 * L * n_fwd, "serve path")
+    expect_launches(counts, "bias_fused_attention", L * n_fwd, "serve path")
+    expect_none(counts, "flash_disentangled_attention", "serve path")
+
+    # Each answer carries its own texts; its scores agree with classify_job.
+    texts = [tx for reqs in bodies for b in reqs for tx in b["texts"]]
+    ref = ZeroShotClassificationPipeline(engine, tok, rt).classify_job(parse_job(
+        {"texts": texts, "labels": [labels], "same_labels": True, "classification_type": "multi-label"}))
+    worst, i = 0.0, 0
+    for t in range(n_threads):
+        for m, body in enumerate(bodies[t]):
+            res = answers[(t, m)]["results"]
+            if [r["text"] for r in res] != body["texts"]:
+                fail(f"serve path: request {t}/{m} answered with other texts")
+            for r in res:
+                scores = {d["label"]: d["score"] for d in r["decisions"]}
+                if sorted(scores) != sorted(labels):
+                    fail(f"serve path: request {t}/{m} has decisions for {sorted(scores)}")
+                worst = max(worst, max(abs(scores[l] - float(ref.probs[i, k])) for k, l in enumerate(labels)))
+                i += 1
+    log(f"   scores vs classify_job on the same engine and texts: max |dprob| {worst:.3e} (tol 0.15)")
+    if worst > 0.15:
+        fail(f"serve path: scores differ from classify_job by {worst}")
+    return counts, n_fwd
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -683,6 +1051,10 @@ def main() -> int:
             # phases draw the same weights and job as before K4 and K5 came.
             "fused_ffn_wonly": check_ffn_wonly(gen, dev, np.random.default_rng([args.seed, 4])),
             "causal_flash_attention": check_causal(gen, dev),
+            # Generators of their own again, for the same reason.
+            "abs_pos_table": check_abs_pos_table(torch.Generator(device=dev).manual_seed(args.seed + 6), dev),
+            "bias_fused_attention": check_bias_attention(torch.Generator(device=dev).manual_seed(args.seed + 7),
+                                                         dev),
         }
 
     # Each kernel's launches come from the run of the path it serves.
@@ -712,9 +1084,19 @@ def main() -> int:
             fail("weight-only path did not launch int8_matmul")
         for name in ("int8_matmul", "fused_ffn_wonly"):
             launches[name], paths[name] = counts[name], "gliclass-base int8"
-    del qparams
 
-    with phase("phase 5: gliclass-qwen-1.5B int8-dynamic"):
+    with phase("phase 5: flash route against bias route, gliclass-base int8-dynamic at [128, 512]"):
+        route_measurement(cfg, qparams, tok, np.random.default_rng([args.seed, 7]), dev)
+        torch.cuda.empty_cache()
+
+    with phase("phase 6: serve path, GLiClassServer over the bias route"):
+        counts, n_fwd = serve_path(cfg, qparams, tok, np.random.default_rng([args.seed, 8]), dev)
+        for name in ("abs_pos_table", "bias_fused_attention"):
+            launches[name], paths[name] = counts[name], "serve: gliclass-base int8-dynamic, attn_route=bias"
+    del qparams
+    torch.cuda.empty_cache()
+
+    with phase("phase 7: gliclass-qwen-1.5B int8-dynamic"):
         bb = qwen2_config("1.5b")
         tok = PromptTokenizer(WordTokenizer(bb.vocab_size))
         cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
@@ -737,7 +1119,7 @@ def main() -> int:
         del qparams
         torch.cuda.empty_cache()
 
-    with phase("phase 6: llama-1.3B geometry, 4 of 24 layers, int8-dynamic"):
+    with phase("phase 8: llama-1.3B geometry, 4 of 24 layers, int8-dynamic"):
         bb = dataclasses.replace(llama_config("1.3b"), num_hidden_layers=4)
         tok = PromptTokenizer(WordTokenizer(bb.vocab_size))
         cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
@@ -758,6 +1140,9 @@ def main() -> int:
         "fused_ffn_wonly": ("gliclass/c_tpu_torch/csrc/fused_ffn_wonly.cu", "gliclass/c_tpu/ops/fused_ffn.py:91"),
         "causal_flash_attention": ("gliclass/c_tpu_torch/csrc/causal_flash_attention.cu",
                                    "gliclass/c_tpu/ops/causal_attention.py:116"),
+        "abs_pos_table": ("gliclass/c_tpu_torch/csrc/abs_pos_table.cu", "gliclass/c_tpu/ops/fused_attention.py:470"),
+        "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention.cu",
+                                 "gliclass/c_tpu/ops/fused_attention.py:547"),
     }
     kernels = []
     for name, r in rec.items():

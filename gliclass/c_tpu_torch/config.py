@@ -23,6 +23,22 @@ DEFAULT_MAX_LENGTH = 2048
 DEFAULT_THRESHOLD = 0.5
 
 
+ATTN_ROUTES = ("auto", "flash", "bias")
+
+
+def check_attn_route(route: str) -> str:
+    """Validate an attention route name. The JAX package's whole-row and
+    tiled routes are not ported yet and raise rather than run another."""
+    if route in ("row", "tiled"):
+        raise NotImplementedError(
+            f"attention route {route!r} is not ported to the GPU yet "
+            "(ROADMAP.md queue 2, PR B); use 'auto', 'flash' or 'bias'"
+        )
+    if route not in ATTN_ROUTES:
+        raise ValueError(f"unknown attention route {route!r}; expected one of {ATTN_ROUTES}")
+    return route
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Engine knobs (replaces reference include/configs.h + argv contract).
@@ -80,6 +96,15 @@ class RuntimeConfig:
     # Fuse q/k/v projections into one wide matmul at engine load
     # (engine.fuse_qkv_params). Math-identical.
     fuse_qkv: bool = False
+    # DeBERTa attention route: "auto" (ops.fused_attention.attention_route
+    # picks by shape), "flash" (K1 everywhere) or "bias" (tables + bias
+    # products + K7 at every 8-aligned length). The JAX package reads the
+    # same choice from GLICLASS_TPU_ATTN_ROUTE at trace time; the port's CLI
+    # fills this field from that variable.
+    attn_route: str = "auto"
+
+    def __post_init__(self):
+        check_attn_route(self.attn_route)
 
     def bucket_for_seq(self, length: int) -> int:
         for b in self.seq_buckets:

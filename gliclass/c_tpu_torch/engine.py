@@ -124,7 +124,8 @@ class InferenceEngine:
     def _forward(self, ids: torch.Tensor, mask: torch.Tensor, max_labels: int) -> torch.Tensor:
         with torch.inference_mode(), act_quant(self._act_quant):
             return gliclass_probs(
-                self.params, ids, mask, self.cfg, max_labels, self.compute_dtype
+                self.params, ids, mask, self.cfg, max_labels, self.compute_dtype,
+                self.runtime.attn_route,
             )
 
     def _device_inputs(self, ids: np.ndarray, mask: np.ndarray):
@@ -186,8 +187,11 @@ class InferenceEngine:
     def warmup(self, seq_buckets=None, label_buckets=None, max_seq: int | None = None, log=None) -> int:
         """Run every (seq bucket, power-of-two row bucket, label bucket) step
         once, so the kernel build and the library handles are paid before
-        traffic arrives. Stacked launches are loops of single steps, so the
-        singles cover them. Returns the number of steps run."""
+        traffic arrives. Each step goes through the forward the engine serves
+        it with, so every bucket runs the attention route (``runtime.
+        attn_route``, resolved per shape) that it will take. Stacked launches
+        are loops of single steps, so the singles cover them. Returns the
+        number of steps run."""
         rt = self.runtime
         seqs = [s for s in (seq_buckets or rt.seq_buckets) if max_seq is None or s <= max_seq]
         labels = list(label_buckets or rt.label_buckets)

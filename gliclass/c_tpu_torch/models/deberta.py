@@ -3,11 +3,13 @@
 Parameters are the JAX package's nested dict of tensors; the L layers are
 stacked on a leading axis and run by a Python loop over ``[L, ...]`` slices.
 
-Disentangled attention takes the kernel route (ops/fused_attention, K1): the
-position tables are projected once per layer, their rows are taken for each
+Disentangled attention takes one of two kernel routes (ops/fused_attention),
+chosen once per forward from (S, B) by ``attention_route``: the flash route
+(K1), which forms the c2p/p2c terms per tile so that no [B, h, S, S] tensor
+is built, or the bias route (K6 tables, bias products, K7). Both start from
+the position tables projected once per layer, their rows taken for each
 relative offset with a static 1-D index (:func:`rel_bias_columns`, the
-Toeplitz structure: the bucketed position depends only on i - j), and the
-kernel forms the c2p/p2c terms per tile, so no [B, h, S, S] tensor is built.
+Toeplitz structure: the bucketed position depends only on i - j).
 :func:`score_attention` keeps the materialized-score formulation (relative-
 axis products skewed by :func:`rel_to_abs`, pair mask) as the reference the
 tests hold the kernel route against, and serves configurations outside the
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import BackboneConfig
-from ..ops.fused_attention import flash_disentangled_attention
+from ..ops.fused_attention import attention_route, flash_disentangled_attention, table_bias_attention
 from ..ops.fused_ffn import fused_ffn
 from ..ops.layers import layer_norm, linear, masked_softmax
 
@@ -132,8 +134,8 @@ def _pos_qk(p_attn: Params, rel_emb: torch.Tensor, cfg: BackboneConfig, compute_
 
 
 def kernel_route(cfg: BackboneConfig) -> bool:
-    """Whether attention runs through K1: relative attention with both
-    c2p and p2c (every published gliclass DeBERTa backbone)."""
+    """Whether attention runs through a kernel route: relative attention
+    with both c2p and p2c (every published gliclass DeBERTa backbone)."""
     return cfg.relative_attention and set(cfg.pos_att_type) == {"c2p", "p2c"}
 
 
@@ -146,8 +148,10 @@ def disentangled_attention(
     cfg: BackboneConfig,
     compute_dtype,
     key_mask: torch.Tensor,
+    route: str = "flash",
 ) -> torch.Tensor:
-    """One disentangled self-attention block through the K1 kernel route.
+    """One disentangled self-attention block through a kernel route,
+    ``route`` "flash" (K1) or "bias" (K6 + bias products + K7).
 
     c2p_cols/p2c_cols: [2S-1] int64 rows of the projected position table per
     relative offset (:func:`rel_bias_columns`); key_mask: [B, S] int32."""
@@ -157,7 +161,13 @@ def disentangled_attention(
     pos_q_flat, pos_k_flat = _pos_qk(p_attn, rel_emb, cfg, compute_dtype)
     pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols).contiguous()
     pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols).contiguous()
-    ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
+    if route == "bias":
+        # Biases are stored in fp32 in fp32 mode and in the compute dtype
+        # otherwise (JAX models/deberta.py bias_dtype); K7 adds them in fp32.
+        score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
+        ctx = table_bias_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale, score_dtype)
+    else:
+        ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
     return linear(p_attn["o"], _merge_heads(ctx), compute_dtype)
 
 
@@ -206,11 +216,13 @@ def encoder_layer(
     cfg: BackboneConfig,
     compute_dtype,
     key_mask: torch.Tensor,
+    route: str | None,
 ) -> torch.Tensor:
-    """Post-LN transformer layer: attn -> add&norm -> FFN -> add&norm."""
-    if kernel_route(cfg):
+    """Post-LN transformer layer: attn -> add&norm -> FFN -> add&norm.
+    ``route``: the kernel route, or None for the score formulation."""
+    if route is not None:
         attn_out = disentangled_attention(
-            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask
+            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route
         )
     else:
         attn_out = score_attention(
@@ -244,8 +256,11 @@ def deberta_encode(
     attention_mask: torch.Tensor,
     cfg: BackboneConfig,
     compute_dtype=torch.float32,
+    attn_route: str = "auto",
 ) -> torch.Tensor:
-    """Full encoder forward: [B, S] ids + mask -> [B, S, H] hidden states."""
+    """Full encoder forward: [B, S] ids + mask -> [B, S, H] hidden states.
+    ``attn_route`` (RuntimeConfig.attn_route) is resolved once for the
+    forward's (S, B) by ``ops.fused_attention.attention_route``."""
     if cfg.conv_kernel_size > 0:
         raise NotImplementedError("the DeBERTa conv stem (conv_kernel_size > 0) is not ported yet")
     B, S = input_ids.shape
@@ -271,11 +286,12 @@ def deberta_encode(
     else:
         rel_emb = torch.zeros((2 * att_span, cfg.hidden_size), dtype=compute_dtype, device=dev)
 
+    route = attention_route(S, B, cfg.head_dim, attn_route) if kernel_route(cfg) else None
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
     for i in range(n_layers):
         x = encoder_layer(
             _layer(layers, i), x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg,
-            compute_dtype, key_mask,
+            compute_dtype, key_mask, route,
         )
     return x

@@ -27,11 +27,13 @@ def encode_backbone(
     attention_mask: torch.Tensor,
     cfg: GLiClassConfig,
     compute_dtype,
+    attn_route: str = "auto",
 ) -> torch.Tensor:
-    """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone."""
+    """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone.
+    ``attn_route`` selects DeBERTa's attention route (decoders ignore it)."""
     bb = cfg.backbone
     if bb.model_type == "deberta-v2":
-        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype)
+        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route)
     if bb.model_type in ("llama", "qwen2"):
         return llama_encode(params, input_ids, attention_mask, bb, compute_dtype)
     raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
@@ -44,6 +46,7 @@ def gliclass_forward(
     cfg: GLiClassConfig,
     max_labels: int,
     compute_dtype=torch.float32,
+    attn_route: str = "auto",
 ) -> torch.Tensor:
     """[B,S] ids + mask -> fp32 logits [B, max_labels]."""
     if cfg.architecture_type != "uni-encoder":
@@ -52,7 +55,9 @@ def gliclass_forward(
             "(the exporter enforces uni-encoder too; reference "
             "ONNX_CONVERTING/convert_to_onnx.py:48-52)"
         )
-    hidden = encode_backbone(params["backbone"], input_ids, attention_mask, cfg, compute_dtype)
+    hidden = encode_backbone(
+        params["backbone"], input_ids, attention_mask, cfg, compute_dtype, attn_route
+    )
     logits, _ = gliclass_head(
         params["head"], hidden, input_ids, attention_mask, cfg, max_labels, compute_dtype
     )
@@ -66,8 +71,11 @@ def gliclass_probs(
     cfg: GLiClassConfig,
     max_labels: int,
     compute_dtype=torch.float32,
+    attn_route: str = "auto",
 ) -> torch.Tensor:
     """Forward + sigmoid on the device (fp32 [B, max_labels])."""
     return torch.sigmoid(
-        gliclass_forward(params, input_ids, attention_mask, cfg, max_labels, compute_dtype)
+        gliclass_forward(
+            params, input_ids, attention_mask, cfg, max_labels, compute_dtype, attn_route
+        )
     )

@@ -25,7 +25,7 @@ _FLAGS = [
     "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     "gct_flash_disentangled_attention": [
@@ -38,6 +38,10 @@ _SIGNATURES = {
     "gct_int8_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_causal_flash_attention": [
         _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+    ],
+    "gct_abs_pos_table": [_I, _P, _P, _I, _I, _I, _P],
+    "gct_bias_fused_attention": [
+        _I, _I, _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _I, _I, _I, _F, _P,
     ],
 }
 

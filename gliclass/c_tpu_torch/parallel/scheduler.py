@@ -9,16 +9,19 @@ with:
   * software pipelining: tokenization of the next chunk overlaps device
     execution of the dispatched batches (asynchronous CUDA launches);
   * one retry per failed batch, then a recorded :class:`BatchFailure` for its
-    texts while the rest of the job completes.
-
-The streaming (serving) scheduler of the JAX package is a later slice.
+    texts while the rest of the job completes;
+  * for serving, :class:`StreamingScheduler`: continuous batching of
+    requests from many threads over the same planning and dispatch.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from dataclasses import dataclass
+import time
+from collections import OrderedDict
+from concurrent.futures import Future, InvalidStateError
+from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -26,7 +29,8 @@ import torch
 
 from ..config import RuntimeConfig
 from ..engine import InferenceEngine
-from ..tokenization import PromptTokenizer, TokenizedBatch
+from ..prompting import pack_prompt
+from ..tokenization import AffixEncoder, PromptTokenizer, TokenizedBatch
 
 
 @dataclass
@@ -421,3 +425,310 @@ def plan_and_run_overlapped(
     with timer.stage("h_drain"):
         _drain_in_flight(engine, in_flight, out, max_label_count, failures)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Streaming (continuous batching) scheduler
+# ---------------------------------------------------------------------------
+@dataclass
+class _Request:
+    text: str
+    labels: tuple[str, ...]
+    prompt_first: bool
+    future: Future = field(default_factory=Future)
+
+    @property
+    def num_labels(self) -> int:
+        return len(self.labels)
+
+    @property
+    def prompt(self) -> str:
+        """Packed prompt, built only when the affix path cannot compose."""
+        return pack_prompt(self.text, list(self.labels), self.prompt_first)
+
+
+class SchedulerOverloaded(RuntimeError):
+    """Raised by submit() when the bounded request queue is full: the
+    backpressure signal (serving maps it to HTTP 429)."""
+
+
+class SchedulerClosed(RuntimeError):
+    """Raised by submit() after close(), and set on any request still queued
+    at close() time, so no caller blocks on a Future that can no longer be
+    fulfilled."""
+
+
+def _resolve(fut: Future, result=None, error: BaseException | None = None) -> None:
+    """Fulfil a request's Future exactly once. A Future the client already
+    cancelled (or that a concurrent path resolved) is skipped: setting it
+    would raise and fail every later request of the round."""
+    if fut.done():
+        return
+    try:
+        if error is not None:
+            fut.set_exception(error)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:  # cancelled between the check and the set
+        pass
+
+
+class StreamingScheduler:
+    """Continuous-batching request scheduler for serving.
+
+    Requests are enqueued from any thread and flow through three threads:
+
+      1. tokenizer: collects a round (up to ``round_requests`` requests,
+         waiting at most ``max_wait_ms`` for it to fill) and encodes it,
+         grouped by label set, with the shared label block encoded once
+         per group (:class:`~..tokenization.AffixEncoder`);
+      2. dispatcher: buckets the encoded round by shape
+         (:func:`plan_from_encoded`) and launches its batches without
+         waiting (:func:`dispatch_planned`);
+      3. drainer: waits for each round's results (:func:`_drain_in_flight`)
+         and fulfils each request's Future exactly once.
+
+    The stages overlap: one round tokenizes while the previous dispatches
+    and the one before drains. ``pipeline_depth`` bounds the rounds between
+    stages (and so the device memory their inputs and outputs hold).
+    ``max_pending`` bounds the request queue: submit() raises
+    :class:`SchedulerOverloaded` instead of queueing without limit.
+    """
+
+    # Label sets whose AffixEncoder is kept; the least recently used is
+    # evicted beyond this (serving traffic usually has a handful of sets).
+    _AFFIX_CACHE_MAX = 64
+
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        tokenizer: PromptTokenizer,
+        runtime: RuntimeConfig | None = None,
+        max_wait_ms: float = 5.0,
+        max_pending: int = 4096,
+        pipeline_depth: int = 4,
+        round_requests: int | None = None,
+    ):
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.runtime = runtime or RuntimeConfig()
+        self.max_wait_s = max_wait_ms / 1e3
+        # Requests per round: a round costs one tokenize call, one plan, one
+        # dispatch and one drain transfer whatever its size, so bigger rounds
+        # amortize that host work; under light load rounds close at
+        # max_wait_ms anyway.
+        self.round_requests = (
+            round_requests if round_requests is not None else 8 * self.runtime.batch_size
+        )
+        self._q: queue.Queue[_Request | None] = queue.Queue(maxsize=max_pending)
+        self._running = True
+        # Orders submit()'s {check _running -> enqueue} against close(): a
+        # request enqueued after close() drained the queue would never be
+        # resolved.
+        self._submit_lock = threading.Lock()
+        self._plan_q: queue.Queue = queue.Queue(maxsize=pipeline_depth)
+        self._drain_q: queue.Queue = queue.Queue(maxsize=pipeline_depth)
+        self._affix_cache: OrderedDict[tuple, AffixEncoder] = OrderedDict()
+        self._tokenizer_thread = threading.Thread(target=self._tokenize_loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._drainer = threading.Thread(target=self._drain_loop, daemon=True)
+        self._drainer.start()
+        self._thread.start()
+        self._tokenizer_thread.start()
+
+    def submit(self, text: str, labels: Sequence[str], prompt_first: bool) -> Future:
+        """Returns a Future resolving to probs np.ndarray [len(labels)].
+
+        Types are checked here, so a malformed request fails its own caller
+        and not the round it would have joined."""
+        if not isinstance(text, str):
+            raise ValueError(f"text must be a string, got {type(text).__name__}")
+        labels = tuple(labels)
+        if not labels or not all(isinstance(l, str) for l in labels):
+            raise ValueError("labels must be a non-empty sequence of strings")
+        req = _Request(text, labels, bool(prompt_first))
+        with self._submit_lock:
+            if not self._running:
+                raise SchedulerClosed("scheduler is closed")
+            try:
+                self._q.put_nowait(req)
+            except queue.Full:
+                raise SchedulerOverloaded(f"request queue full ({self._q.maxsize} pending)") from None
+        return req.future
+
+    def pending(self) -> int:
+        """Current request-queue depth (approximate: it races the tokenizer)."""
+        return self._q.qsize()
+
+    def close(self):
+        """Stop the threads and fail every request still in the queue.
+
+        Rounds already past the tokenizer finish and fulfil their futures;
+        queued requests get :class:`SchedulerClosed`, so callers blocked on
+        ``future.result()`` wake at once."""
+        with self._submit_lock:
+            self._running = False
+        try:
+            self._q.put(None, timeout=5)
+        except queue.Full:
+            pass  # the tokenizer re-checks _running every round
+        # Each stage's finally passes the sentinel on to the next.
+        self._tokenizer_thread.join(timeout=30)
+        self._thread.join(timeout=30)
+        self._drainer.join(timeout=30)
+        while True:
+            try:
+                r = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if r is not None:
+                _resolve(r.future, error=SchedulerClosed("scheduler closed"))
+
+    # ------------------------------------------------------------------
+    def _collect(self) -> list[_Request]:
+        """Block for one request, then take more until the round is full or
+        ``max_wait_s`` has passed."""
+        first = self._q.get()
+        if first is None:
+            return []
+        reqs = [first]
+        deadline = time.monotonic() + self.max_wait_s
+        while len(reqs) < self.round_requests:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                r = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if r is None:
+                self._q.put(None)  # re-signal shutdown for the outer loop
+                break
+            reqs.append(r)
+        return reqs
+
+    def _tokenize_loop(self):
+        """Stage 1: collect a round, encode it, hand it to the dispatcher.
+        :meth:`_encode_round` isolates group faults; only a round-wide fault
+        fails every request of the round."""
+        try:
+            while self._running:
+                reqs = self._collect()
+                if not reqs:
+                    break
+                try:
+                    kept, enc = self._encode_round(reqs)
+                    if kept:
+                        self._plan_q.put((kept, enc))
+                except Exception as e:  # round-wide fault: keep the loop
+                    for r in reqs:
+                        _resolve(r.future, error=e)
+        finally:
+            self._plan_q.put(None)
+
+    def _affix_encoder(self, labels: tuple, prompt_first: bool, sample_text: str) -> AffixEncoder:
+        """The cached AffixEncoder of a label set, least recently used out."""
+        key = (labels, prompt_first)
+        enc = self._affix_cache.get(key)
+        if enc is not None:
+            self._affix_cache.move_to_end(key)
+            return enc
+        enc = AffixEncoder.for_labels(
+            self.tokenizer, labels, prompt_first, self.runtime.max_length, sample_text=sample_text
+        )
+        self._affix_cache[key] = enc
+        while len(self._affix_cache) > self._AFFIX_CACHE_MAX:
+            self._affix_cache.popitem(last=False)
+        return enc
+
+    def _encode_round(self, reqs: "list[_Request]") -> "tuple[list[_Request], TokenizedBatch | None]":
+        """Encode one round grouped by (labels, prompt_first): a group whose
+        AffixEncoder composes exactly encodes its texts with the shared label
+        block composed in; any other group packs and encodes full prompts. A
+        group whose encode raises fails only its own requests. Returns the
+        surviving requests and the round's TokenizedBatch in their order."""
+        max_length = self.runtime.max_length
+        groups: dict[tuple, list[int]] = {}
+        for i, r in enumerate(reqs):
+            groups.setdefault((r.labels, r.prompt_first), []).append(i)
+
+        parts: list[tuple[list[int], TokenizedBatch]] = []
+        for (labels, pf), idxs in groups.items():
+            try:
+                texts = [reqs[i].text for i in idxs]
+                enc = self._affix_encoder(labels, pf, texts[0])
+                if enc.exact:
+                    tb = enc.encode_batch(texts, max_length)
+                else:
+                    tb = self.tokenizer.encode_batch(
+                        [reqs[i].prompt for i in idxs], max_length, pad_to=None
+                    )
+                parts.append((idxs, tb))
+            except Exception as e:  # isolate: fail only this group
+                for i in idxs:
+                    _resolve(reqs[i].future, error=e)
+
+        if not parts:
+            return [], None
+        if len(parts) == 1:
+            idxs, tb = parts[0]
+            return [reqs[i] for i in idxs], tb
+        order = [i for idxs, _ in parts for i in idxs]
+        pos = {req_i: row for row, req_i in enumerate(order)}
+        n = len(order)
+        target = max(tb.seq_length for _, tb in parts)
+        ids = np.full((n, target), self.tokenizer.pad_token_id, dtype=np.int32)
+        mask = np.zeros((n, target), dtype=np.int32)
+        lengths = np.zeros((n,), dtype=np.int32)
+        for idxs, tb in parts:
+            L = tb.seq_length
+            rows = np.asarray([pos[i] for i in idxs])
+            ids[rows, :L] = tb.input_ids
+            mask[rows, :L] = tb.attention_mask
+            lengths[rows] = tb.lengths
+        return [reqs[i] for i in order], TokenizedBatch(ids, mask, lengths)
+
+    def _loop(self):
+        """Stage 2: bucket, assemble and dispatch a round; hand it on to the
+        drainer."""
+        try:
+            while True:
+                item = self._plan_q.get()
+                if item is None:
+                    break
+                reqs, enc = item
+                try:
+                    planned = plan_from_encoded(
+                        self.tokenizer, enc, [r.num_labels for r in reqs], self.runtime
+                    )
+                    maxw = max(r.num_labels for r in reqs)
+                    failures: list[BatchFailure] = []
+                    out = np.zeros((len(reqs), maxw), dtype=np.float32)
+                    in_flight = dispatch_planned(self.engine, planned, out, maxw, failures)
+                    self._drain_q.put((reqs, out, maxw, failures, in_flight))
+                except Exception as e:  # fail this round, keep the loop
+                    for r in reqs:
+                        _resolve(r.future, error=e)
+        finally:
+            self._drain_q.put(None)
+
+    def _drain_loop(self):
+        """Stage 3: wait for each round's results and fulfil its futures
+        exactly once; only the requests of a batch that failed after its
+        retry get an error."""
+        while True:
+            item = self._drain_q.get()
+            if item is None:
+                break
+            reqs, out, maxw, failures, in_flight = item
+            try:
+                _drain_in_flight(self.engine, in_flight, out, maxw, failures)
+                failed = {i: f.error for f in failures for i in f.indices}
+                for i, r in enumerate(reqs):
+                    if i in failed:
+                        _resolve(r.future, error=RuntimeError(failed[i]))
+                    else:
+                        _resolve(r.future, out[i, : r.num_labels])
+            except Exception as e:  # fail every request of the round
+                for r in reqs:
+                    _resolve(r.future, error=e)

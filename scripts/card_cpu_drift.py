@@ -62,7 +62,7 @@ def layer_states(engine, batch) -> list[torch.Tensor]:
             c2p, p2c = (torch.from_numpy(c.astype(np.int64)).to(ids.device) for c in cols)
             rel = layer_norm(p["rel_ln"], p["rel_embeddings"].to(dt), bb.layer_norm_eps)
             for i in range(bb.num_hidden_layers):
-                x = D.encoder_layer(D._layer(p["layers"], i), x, rel, pair, c2p, p2c, bb, dt, km)
+                x = D.encoder_layer(D._layer(p["layers"], i), x, rel, pair, c2p, p2c, bb, dt, km, "flash")
                 out.append(x.float().cpu())
             return out
         x = p["embeddings"]["word"].index_select(0, ids.reshape(-1).long()).reshape(B, S, -1).to(dt)

@@ -1,0 +1,190 @@
+"""The port's CLI against the JAX package's, on a tiny bundle, on CPU:
+``run`` (report and JSON), ``selftest`` (golden gate, INT8 F1 gate),
+``serve`` wiring and a graceful SIGTERM, the route variable, and the
+commands that are not ported yet failing with a clear message."""
+
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+
+from gliclass.c_tpu.cli import main as jmain
+from gliclass.c_tpu.config import BackboneConfig, GLiClassConfig
+from gliclass.c_tpu_torch import serving
+from gliclass.c_tpu_torch.cli import main
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGS = ["--dtype", "float32", "--max-length", "64"]
+
+
+@pytest.fixture(scope="module")
+def tiny_bundle(tiny_tokenizer_file, tmp_path_factory):
+    """fp32 + INT8 bundle with goldens, written by the JAX converter."""
+    from gliclass.c_tpu.convert.convert import export_bundle
+    from gliclass.c_tpu.convert.torch_ref import build_torch_gliclass
+    from gliclass.c_tpu.tokenization import PromptTokenizer
+
+    tok = PromptTokenizer.from_file(tiny_tokenizer_file)
+    bb = BackboneConfig(model_type="deberta-v2", vocab_size=600, hidden_size=32,
+                        num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+                        max_position_embeddings=64, position_buckets=16, norm_rel_ebd="layer_norm",
+                        share_att_key=True, position_biased_input=False)
+    cfg = GLiClassConfig(hidden_size=32, class_token_index=tok.label_token_id,
+                         text_token_index=tok.sep_token_id, prompt_first=True, backbone=bb)
+    path = str(tmp_path_factory.mktemp("bundle") / "tiny")
+    export_bundle(build_torch_gliclass(cfg), cfg, tok, path, quantize=True)
+    return path
+
+
+@pytest.fixture()
+def job_file(tmp_path):
+    p = tmp_path / "job.json"
+    p.write_text(json.dumps({
+        "texts": ["the quick brown fox", "why are you running", "support ukraine"],
+        "labels": [["science", "sports", "question"]],
+        "same_labels": True,
+        "classification_type": "multi-label",
+    }))
+    return str(p)
+
+
+def _report(out: str) -> list[str]:
+    """stdout without the lines that carry a time or a path."""
+    return [l for l in out.splitlines()
+            if not l.startswith(("Execution time:", "Throughput:", "Results written to"))]
+
+
+@pytest.mark.parametrize("extra", [[], ["false"]])
+def test_run_matches_jax_cli(tiny_bundle, job_file, tmp_path, capsys, extra):
+    """The same report (timing lines aside) and JSON to 1e-5, with the
+    bundle's prompt_first and with the positional override."""
+    outs = {}
+    for name, fn, kw in (("jax", jmain, {}), ("port", main, {"device": "cpu"})):
+        js = str(tmp_path / f"{name}.json")
+        rc = fn(["run", job_file, *extra, "--bundle", tiny_bundle, *FLAGS, "--json-out", js], **kw)
+        text = capsys.readouterr().out
+        assert rc == 0, text
+        assert "Execution time:" in text and f"Results written to {js}" in text
+        outs[name] = (text, json.load(open(js)))
+    assert _report(outs["port"][0]) == _report(outs["jax"][0])
+    tj, jj = outs["port"][1], outs["jax"][1]
+    assert len(tj) == len(jj) == 3
+    for a, b in zip(tj, jj):
+        assert (a["text_index"], a["text"]) == (b["text_index"], b["text"])
+        assert [d["label"] for d in a["decisions"]] == [d["label"] for d in b["decisions"]]
+        np.testing.assert_allclose([d["score"] for d in a["decisions"]],
+                                   [d["score"] for d in b["decisions"]], atol=1e-5)
+
+
+def test_run_bias_route_from_environment(tiny_bundle, job_file, tmp_path, capsys, monkeypatch):
+    """GLICLASS_TPU_ATTN_ROUTE, the JAX package's variable, sets the port's
+    route: bias gives the flash route's results; an unported route raises."""
+    results = {}
+    for route in ("flash", "bias"):
+        monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", route)
+        js = str(tmp_path / f"{route}.json")
+        assert main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, "--json-out", js], device="cpu") == 0
+        results[route] = json.load(open(js))
+    capsys.readouterr()
+    for a, b in zip(results["bias"], results["flash"]):
+        np.testing.assert_allclose([d["score"] for d in a["decisions"]],
+                                   [d["score"] for d in b["decisions"]], atol=1e-5)
+    monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", "tiled")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["run", job_file, "--bundle", tiny_bundle, *FLAGS], device="cpu")
+
+
+def test_selftest_fp32_passes(tiny_bundle, capsys):
+    rc = main(["selftest", "--bundle", tiny_bundle, *FLAGS], device="cpu")
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "golden-logit check" in out and "(tol 0.001) PASS" in out
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--int8-dynamic"])
+def test_selftest_int8_gate(tiny_bundle, capsys, flag):
+    rc = main(["selftest", "--bundle", tiny_bundle, *FLAGS, flag], device="cpu")
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "(tol 0.15) PASS" in out
+    gate = [l for l in out.splitlines() if l.startswith("int8 F1 gate:")]
+    assert len(gate) == 1 and gate[0].endswith("PASS"), out
+
+
+def test_unported_commands_fail_clearly(tiny_bundle, job_file, capsys):
+    for cmd in (["convert", "--model-path", "x", "--save-path", "y"], ["fetch", "some/model"]):
+        assert main(cmd, device="cpu") == 2
+        assert "not ported yet" in capsys.readouterr().err
+    for bad in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
+        with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 6"):
+            main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, *bad], device="cpu")
+    with pytest.raises(SystemExit, match="item 5"):
+        main(["run", job_file, "--model", "some/model", *FLAGS], device="cpu")
+
+
+def test_serve_wiring(tiny_bundle, monkeypatch):
+    """`serve` builds the server from the bundle (with --warmup), binds the
+    requested ephemeral port, answers a real HTTP classify, and closes when
+    serve_forever returns."""
+    seen = {}
+
+    def drive_one_request(self):
+        self.start()
+        body = json.dumps({"texts": ["science fox runs"], "labels": ["science", "sports"],
+                           "classification_type": "single-label"}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}/classify", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            seen["resp"] = json.loads(r.read())
+
+    monkeypatch.setattr(serving.GLiClassServer, "serve_forever", drive_one_request)
+    rc = main(["serve", "--bundle", tiny_bundle, "--port", "0", "--warmup", "--warmup-max-seq", "64", *FLAGS],
+              device="cpu")
+    assert rc == 0
+    res = seen["resp"]["results"]
+    assert len(res) == 1 and len(res[0]["decisions"]) == 1
+    assert res[0]["decisions"][0]["label"] in ("science", "sports")
+
+
+def test_serve_sigterm_graceful(tiny_bundle):
+    """Repair: SIGTERM shuts the server down from a separate thread and the
+    process exits 0 (shutdown() on the signal-handling main thread, inside
+    serve_forever, would deadlock). Runs the real `serve` in a subprocess."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    child = (
+        "import sys\n"
+        "from gliclass.c_tpu_torch.cli import main\n"
+        f"sys.exit(main(['serve', '--bundle', {tiny_bundle!r}, '--port', '{port}', "
+        "'--dtype', 'float32', '--max-length', '64'], device='cpu'))\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", child], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        up = False
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    up = json.loads(r.read())["status"] == "ok"
+                break
+            except OSError:
+                time.sleep(0.2)
+        assert up, f"server never came up (rc={proc.poll()})"
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        assert rc == 0, f"serve exited {rc} on SIGTERM: {proc.stderr.read()}"
+        assert "jax" not in proc.stderr.read().lower()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)

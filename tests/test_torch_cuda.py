@@ -7,6 +7,7 @@ and needs no conftest, so on a machine with a card it runs as
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -266,3 +267,131 @@ def test_decoder_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
         want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# The bias route: K6 (tables), K7 (softmax over biases), and the route as a
+# whole against K1.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 56, 72, 88, 100, 128, 130, 192, 256, 384, 512, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abs_pos_table_kernel_equals_plain(dev, S, dtype):
+    g = torch.Generator(device=dev).manual_seed(S)
+    pos = torch.randn(3 if S <= 512 else 1, 2 * S - 1, 64, generator=g, device=dev).to(dtype)
+    got = FA.abs_pos_table(pos, S)
+    want = FA.abs_pos_table_plain(pos, S)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)  # a copy of values: exact
+
+
+@pytest.mark.parametrize("d", [8, 128])
+def test_abs_pos_table_kernel_other_widths(dev, d):
+    g = torch.Generator(device=dev).manual_seed(d)
+    pos = torch.randn(2, 2 * 130 - 1, d, generator=g, device=dev)
+    assert torch.equal(FA.abs_pos_table(pos, 130), FA.abs_pos_table_plain(pos, 130))
+
+
+def _bias_inputs(dev, S, dtype, layout, seed):
+    """_attn_inputs plus c2p/p2c: views of [h, S, B, S] products as the route
+    passes them ("route"), or dense [B, h, S, S] tensors."""
+    q, k, v, _, _, mask = _attn_inputs(dev, 4, 3, S, dtype, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    if layout == "route":
+        c2p = (4 * torch.randn(3, S, 4, S, generator=g, device=dev)).to(dtype).permute(2, 0, 1, 3)
+        p2c = (4 * torch.randn(3, S, 4, S, generator=g, device=dev)).to(dtype).permute(2, 0, 3, 1)
+    else:
+        c2p, p2c = ((4 * torch.randn(4, 3, S, S, generator=g, device=dev)).to(dtype) for _ in range(2))
+    return q, k, v, c2p, p2c, mask
+
+
+@pytest.mark.parametrize("S", [1, 56, 88, 128, 130, 256, 512, 600, 1024, 2048])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layout", ["route", "dense"])
+def test_bias_kernel_matches_plain(dev, S, dtype, tol, layout):
+    """Over the ladder (64, 32 and 16 rows per block), with ragged, single and
+    leading-masked keys (_attn_inputs), in both bias layouts."""
+    args = _bias_inputs(dev, S, dtype, layout, S)
+    scale = math.sqrt(3 * 64)
+    got = FA.bias_fused_attention(*args, scale)
+    want = FA.bias_fused_attention_plain(*args, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_bias_kernel_row_without_valid_key_is_the_mean_of_v(dev):
+    """A row with every key masked: all scores sit at -1e30, so both versions
+    average v over the S keys (the engine never builds such a row)."""
+    q, k, v, c2p, p2c, mask = _bias_inputs(dev, 100, torch.float32, "route", 0)
+    mask[0] = 0
+    got = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 8.0)
+    want = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (got[0] - v[0].mean(dim=1, keepdim=True)).abs().max().item() <= 1e-5
+
+
+def test_bias_kernel_checks_inputs(dev):
+    q, k, v, c2p, p2c, mask = _bias_inputs(dev, 32, torch.float32, "route", 0)
+    with pytest.raises(ValueError, match="int32"):
+        FA.bias_fused_attention(q, k, v, c2p, p2c, mask.long(), 8.0)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.bias_fused_attention(q[..., :32], k[..., :32], v[..., :32], c2p, p2c, mask, 8.0)
+    with pytest.raises(ValueError, match="one type"):
+        FA.bias_fused_attention(q, k, v, c2p, p2c.to(torch.bfloat16), mask, 8.0)
+    q, k, v, c2p, p2c, mask = _bias_inputs(dev, 2056, torch.bfloat16, "dense", 0)
+    with pytest.raises(ValueError, match="2048"):
+        FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 8.0)
+
+
+@pytest.mark.parametrize("S", [56, 88, 128, 512, 1024, 2048])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_bias_route_matches_flash_route(dev, S, dtype, tol):
+    """table_bias_attention (K6, bias products, K7) against K1 on the same
+    inputs. bf16 stores the biases in bf16, which K1 never rounds."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, S, dtype, S + 7)
+    scale = math.sqrt(3 * 64)
+    FA.launches_table = FA.launches_bias = 0
+    got = FA.table_bias_attention(q, k, v, pk, pq, mask, scale, score_dtype=dtype)
+    want = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, scale)
+    torch.cuda.synchronize()
+    assert (FA.launches_table, FA.launches_bias) == (2, 1)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_engine_bias_route_on_card(dev):
+    """The engine with attn_route="bias" launches K6 twice and K7 once per
+    layer and no K1, and agrees with the CPU (plain versions) and with the
+    flash route on the card."""
+    bb = BackboneConfig(vocab_size=300, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        intermediate_size=256, max_position_embeddings=128, position_buckets=16)
+    cfg = GLiClassConfig(hidden_size=128, class_token_index=7, backbone=bb)
+    rng = np.random.default_rng(2)
+    dense = lambda i, o, lead=(): {"w": rng.normal(0, 0.05, (*lead, i, o)).astype(np.float32),
+                                   "b": rng.normal(0, 0.02, (*lead, o)).astype(np.float32)}
+    ln = lambda lead=(): {"scale": np.ones((*lead, 128), np.float32), "bias": np.zeros((*lead, 128), np.float32)}
+    L = (2,)
+    params = {
+        "backbone": {
+            "embeddings": {"word": rng.normal(size=(300, 128)).astype(np.float32), "ln": ln()},
+            "rel_embeddings": rng.normal(size=(32, 128)).astype(np.float32), "rel_ln": ln(),
+            "layers": {"attn": {**{n: dense(128, 128, L) for n in "qkvo"}, "ln": ln(L)},
+                       "ffn": {"up": dense(128, 256, L), "down": dense(256, 128, L), "ln": ln(L)}},
+        },
+        "head": {p: {"linear_1": dense(128, 512), "linear_2": dense(512, 128)}
+                 for p in ("text_projector", "classes_projector")},
+    }
+    ids = rng.integers(10, 290, size=(5, 40)).astype(np.int32)
+    ids[:, 1:6:2] = 7
+    mask = np.ones_like(ids)
+    mask[3, 25:] = 0
+    batch = TokenizedBatch(ids, mask, mask.sum(1).astype(np.int32))
+    rt = RuntimeConfig(batch_size=8, compute_dtype="float32", attn_route="bias")
+    card = InferenceEngine(cfg, params, rt)
+    FA.launches = FA.launches_table = FA.launches_bias = 0
+    got = card.run(batch, 4)
+    assert (FA.launches, FA.launches_table, FA.launches_bias) == (0, 4, 2)
+    want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
+    flash = InferenceEngine(cfg, params, dataclasses.replace(rt, attn_route="flash")).run(batch, 4)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, flash, atol=1e-5)

@@ -247,22 +247,27 @@ def test_pipeline_call_api(bundle_dir, engine, overlap):
 
 
 def test_port_imports_no_jax_and_nothing_of_c_tpu():
-    """Import the port and every module of it in a fresh interpreter; no
-    module named jax or jax.*, and none named gliclass.c_tpu or
+    """Import the port and every module of it in a fresh interpreter (the
+    serving slice's serving, cli and utils.eval by name, then everything
+    else); no module named jax or jax.*, and none named gliclass.c_tpu or
     gliclass.c_tpu.* (gliclass.c_tpu_torch itself shares that prefix)."""
     code = (
         "import importlib, json, pkgutil, sys\n"
+        "import gliclass.c_tpu_torch.serving, gliclass.c_tpu_torch.cli, gliclass.c_tpu_torch.utils.eval\n"
         "import gliclass.c_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'gliclass.c_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'gliclass.c_tpu' or k.startswith('gliclass.c_tpu.')]\n"
-        "print(json.dumps(bad))\n"
+        "print(json.dumps([bad, sorted(k for k in sys.modules if k.startswith('gliclass.'))]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    bad, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    for name in ("serving", "cli", "utils.eval", "parallel.scheduler"):
+        assert f"gliclass.c_tpu_torch.{name}" in loaded
 
 
 def _is_jax_side(name: str) -> bool:

@@ -14,7 +14,9 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    K1 flash disentangled attention, K2 fused w8a8 FFN, K3 INT8-weight
    matmul, K4 fused weight-only FFN, K5 causal GQA flash attention, K6 the
    bias route's absolute position table (exact), K7 its softmax over
-   precomputed biases.
+   precomputed biases, K8 whole-row disentangled attention, K9 the tiled
+   route's windowed position tables (exact), K10 its flash attention over
+   them.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
@@ -30,19 +32,30 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    128 texts of the 512 bucket at batch 128, launches (K6 24 and K7 12 per
    forward, K1 none on the bias run), peak memory, a profile of the bias
    run, and fp32 hidden states bias against flash (1e-4).
-6. Serve path: GLiClassServer on 127.0.0.1 (the same model, attn_route
+6. The four attention routes on the same model, "int8-dynamic": the whole
+   forward at [B, 512] for B = 128, 32, 16, 8 and [B, 128] for B = 128, 32
+   with the route forced to
+   flash, bias, row (K8) and tiled (K9 + K10), two turns in opposite
+   orders; classify_job on phase 3's job under row and under tiled (texts/s,
+   forwards, peak memory, a profile, agreement with the CPU) with exact
+   launch counts per forward (row: K8 12, K1 none; tiled: K9 24 and K10 12
+   in the buckets that are multiples of 32, K1 12 in the others); one
+   forward of the 512 bucket launching K10 12 times; fp32 hidden states of
+   row and tiled against flash at S=512 and 128 (1e-4).
+7. Serve path: GLiClassServer on 127.0.0.1 (the same model, attn_route
    "bias", warmed up), 16 client threads posting 256 requests over HTTP;
    each answered once, scores against classify_job, K6/K7 launches per
    forward, /metrics latency percentiles and requests/s.
-7. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
+8. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
    28 layers, H=1536, 12 query / 2 kv heads, d=128, I=8960, vocab 151,936),
    random INT8 weights made layer by layer, "int8-dynamic" through
    classify_job; texts/s, stages, profile, peak memory; K5 launched 28 times
    per forward; the first 4 texts against the CPU.
-8. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
+9. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
    bias, vocab 32,000), "int8-dynamic", a small job; K5 launches and
    agreement with the CPU.
-9. One JSON line of kernel records, the card line, and the final status line.
+10. One JSON line of kernel records (all ten kernels), the card line, and
+    the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
 """
@@ -52,6 +65,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -464,6 +478,172 @@ def check_bias_attention(gen: torch.Generator, dev) -> dict:
                 bound_by=by, max_abs_err=worst, shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
 
 
+def rel_inputs(gen: torch.Generator, dev, B: int, S: int, dtype):
+    """Inputs of the row and tiled routes as the model passes them: q/k/v
+    head views of one [B, S, 3H] projection, the two [h, 2S-1, d] relative
+    tables, and a key mask with ragged lengths (one full row)."""
+    h, d = 12, 64
+    H = h * d
+    qkv = torch.randn(B, S, 3 * H, generator=gen, device=dev).to(dtype)
+    q, k, v = (qkv[..., i * H:(i + 1) * H].reshape(B, S, h, d).transpose(1, 2) for i in range(3))
+    pos_k, pos_q = (torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lengths[0] = S
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+    return q, k, v, pos_k, pos_q, mask
+
+
+def sdpa_rel_ms(q, k, v, pos_k, pos_q, mask, scale) -> float:
+    """Yardstick only: one scaled_dot_product_attention call for the same
+    function, the additive mask (c2p + p2c) / scale (and the padded keys)
+    summed outside the timed call, as for K7."""
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    c2p, p2c = FA._rel_biases(q, k, pos_k, pos_q)
+    bias = ((c2p + p2c) * (1.0 / scale)).masked_fill(mask[:, None, None, :] == 0, float("-inf")).to(q.dtype)
+    del c2p, p2c
+    ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                          scale=1.0 / scale))
+    del bias
+    torch.cuda.empty_cache()
+    return ms
+
+
+def attention_bound(B: int, S: int, extra_bytes: float) -> tuple[float, str, float, float]:
+    """Bound of the four-product attention kernels (q.k, c2p, p2c, p.v: 2*S*S*d
+    operations each per (b, h)) on bf16 inputs: q, k, v read and out written
+    once, the mask, and ``extra_bytes`` of tables."""
+    h, d = 12, 64
+    ops = B * h * 8.0 * S * S * d
+    nbytes = 4 * B * h * S * d * 2 + B * S * 4 + extra_bytes
+    return (*bound_ms(ops, "bf16", nbytes), ops, nbytes)
+
+
+def check_row_attention(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    h, d = 12, 64
+    scale = math.sqrt(d * 3)
+    # bf16: as K7 (the same softmax): the fp32 score sums run in another order
+    # than the plain version's matmuls and p is rounded to bf16 before p.v.
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    worst = 0.0
+    # (B, S, dtype, timed): the 512 bucket at the route phase's two batches, a
+    # ragged short bucket (88: a part row tile and key tile), and fp32.
+    cases = ((128, 512, torch.bfloat16, True), (16, 512, torch.bfloat16, True),
+             (16, 88, torch.bfloat16, False), (16, 88, torch.float32, False), (8, 512, torch.float32, False))
+    for B, S, dtype, timed in cases:
+        args = rel_inputs(gen, dev, B, S, dtype)
+        out = FA.row_disentangled_attention(*args, scale)
+        ref = FA.row_disentangled_attention_plain(*args, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"K8 B={B} S={S} {dtype}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"K8 row_disentangled_attention B={B} h={h} S={S} d={d} {str(dtype)[6:]} ragged keys: "
+            f"max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
+        if err > tol[dtype]:
+            fail(f"K8 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
+        del ref
+        if not timed:
+            continue
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.row_disentangled_attention(*args, scale))
+        plain = time_ms(lambda: FA.row_disentangled_attention_plain(*args, scale), iters=5)
+        lib = sdpa_rel_ms(*args, scale)
+        bms, by, ops, nbytes = attention_bound(B, S, 2 * h * (2 * S - 1) * d * 2)
+        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
+            f"{lib:.4f} ms | bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
+                         ("nbytes", nbytes)):
+            tot[key] += val
+        torch.cuda.empty_cache()
+    bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
+                bound_by=by, max_abs_err=worst, shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
+
+
+def check_windowed_pos_table(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    h, d, blk = 12, 64, FA.TILED_BLK
+    rec = None
+    for S in (128, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            pos = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
+            out = FA.windowed_pos_tables(pos, blk)
+            ref = FA.windowed_pos_tables_plain(pos, blk)
+            torch.cuda.synchronize()
+            # A copy of values: the kernel must equal the gather exactly.
+            same = out.shape == ref.shape and torch.equal(out, ref)
+            err = (out.float() - ref.float()).abs().max().item() if out.shape == ref.shape else float("inf")
+            log(f"K9 windowed_pos_tables h={h} S={S} blk={blk} d={d} {str(dtype)[6:]}: "
+                f"{'equal' if same else 'DIFFERENT'} to its plain version (max|diff| {err:.3e}, tol 0: exact)")
+            if not same:
+                fail(f"K9 S={S} {dtype}: kernel differs from its plain version")
+            if S != 512 or dtype != torch.bfloat16:
+                continue
+            idx = FA._win_index(S, blk, dev).reshape(-1)
+            ms = time_ms(lambda: FA.windowed_pos_tables(pos, blk))
+            plain = time_ms(lambda: FA.windowed_pos_tables_plain(pos, blk), iters=10)
+            lib = time_ms(lambda: torch.index_select(pos, 1, idx))  # one gather, [h, w*x*y, d]
+            nbytes = h * (2 * S - 1) * d * 2 + out.numel() * 2
+            bms, by = bound_ms(0.0, "bf16", nbytes)
+            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | index_select {lib:.4f} ms | "
+                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
+                       shape=f"one table, h={h} S={S} blk={blk} d={d} bf16")
+    return rec
+
+
+def check_tiled_attention(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+
+    h, d, blk = 12, 64, FA.TILED_BLK
+    scale = math.sqrt(d * 3)
+    # bf16: as K1 (the same online softmax): fp32 sums in another order, and
+    # exp(s - m) rounded to bf16 at the running max, not the row's.
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    worst = 0.0
+    cases = ((128, 512, torch.bfloat16, True), (16, 512, torch.bfloat16, True),
+             (16, 128, torch.bfloat16, False), (16, 128, torch.float32, False), (8, 512, torch.float32, False))
+    for B, S, dtype, timed in cases:
+        q, k, v, pos_k, pos_q, mask = rel_inputs(gen, dev, B, S, dtype)
+        twc, twq = FA.windowed_pos_tables(pos_k, blk), FA.windowed_pos_tables(pos_q, blk)
+        args = (q, k, v, twc, twq, mask, scale)
+        out = FA.tiled_attention(*args)
+        ref = FA.tiled_attention_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"K10 B={B} S={S} {dtype}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"K10 tiled_attention B={B} h={h} S={S} d={d} blk={blk} {str(dtype)[6:]} ragged keys: "
+            f"max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
+        if err > tol[dtype]:
+            fail(f"K10 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
+        del ref
+        torch.cuda.empty_cache()
+        if not timed:
+            continue
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.tiled_attention(*args))
+        plain = time_ms(lambda: FA.tiled_attention_plain(*args), iters=5)
+        torch.cuda.empty_cache()
+        lib = sdpa_rel_ms(q, k, v, pos_k, pos_q, mask, scale)
+        bms, by, ops, nbytes = attention_bound(B, S, 2 * twc.numel() * 2)
+        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
+            f"{lib:.4f} ms | bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
+                         ("nbytes", nbytes)):
+            tot[key] += val
+    bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
+                bound_by=by, max_abs_err=worst,
+                shape=f"sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16, tables blk={blk})")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3/4: main path at full width
 # ---------------------------------------------------------------------------
@@ -604,7 +784,10 @@ def counters() -> dict:
             "fused_ffn_wonly": (fused_ffn, "launches_wonly"),
             "causal_flash_attention": (causal_attention, "launches"),
             "abs_pos_table": (fused_attention, "launches_table"),
-            "bias_fused_attention": (fused_attention, "launches_bias")}
+            "bias_fused_attention": (fused_attention, "launches_bias"),
+            "row_disentangled_attention": (fused_attention, "launches_row"),
+            "windowed_pos_tables": (fused_attention, "launches_win_table"),
+            "tiled_attention": (fused_attention, "launches_tiled")}
 
 
 def reset_counts() -> None:
@@ -660,10 +843,11 @@ def hidden_states(engine, batch) -> torch.Tensor:
 
 def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, label: str,
              batch_size: int = 128, hidden_tol: float = 0.1, prob_tol: float = 0.15,
-             profile: bool = False) -> tuple[dict, int]:
+             profile: bool = False, attn_route: str = "auto") -> tuple[dict, list]:
     """classify_job on the card: a warm pass, then three timed passes; the
-    launch counts and the number of forwards of the first timed pass; the
-    first ``n_cpu`` texts against the same port on the CPU.
+    launch counts and the (rows, seq) of every forward of the first timed
+    pass; the first ``n_cpu`` texts against the same port on the CPU (the
+    same attention route, through the plain versions).
 
     The CPU comparison holds the backbone's hidden states (relative L2 error
     over valid tokens) in this precision mode (``hidden_tol``) and in fp32
@@ -684,7 +868,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
 
     rt = RuntimeConfig(batch_size=batch_size, max_length=512, compute_dtype="bfloat16",
-                       quant_mode=quant_mode, seq_buckets=SEQ_LADDER, label_buckets=(8,))
+                       quant_mode=quant_mode, seq_buckets=SEQ_LADDER, label_buckets=(8,), attn_route=attn_route)
     job = parse_job(job_dict)
     engine = InferenceEngine(cfg, qparams, rt, device=dev)
     forwards = count_forwards(engine)
@@ -693,6 +877,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     pipe.classify_job(job)  # first pass: library handles, allocator growth
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
+    gc.collect()  # engines of earlier paths (count_forwards makes a cycle) hold no memory in the peak
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     forwards.clear()
@@ -700,7 +885,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     out = pipe.classify_job(job)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    counts, n_fwd = read_counts(), len(forwards)
+    counts, shapes = read_counts(), list(forwards)
     for _ in range(2):  # spread of the same pass
         t0 = time.perf_counter()
         pipe.classify_job(job)
@@ -715,7 +900,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     log(f"{label}: {n} texts, median of 3 passes {wall:.4f} s = {n / wall:.1f} texts/s "
         f"(passes {', '.join(f'{w:.4f}' for w in walls)} s; first pass {cold:.3f} s)")
     log(f"   stages: {json.dumps(out.timings)}")
-    log(f"   forwards: {n_fwd}; launches: {json.dumps(counts)}")
+    log(f"   forwards: {len(shapes)} (rows x seq: {shapes}); launches: {json.dumps(counts)}")
     log(f"   peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
         profile_job(pipe, job, wall)
@@ -750,7 +935,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
         fail(f"{label}: card and CPU fp32 hidden states differ by {herr32} (relative)")
     if diff > prob_tol:
         fail(f"{label}: card and CPU probabilities disagree by {diff}")
-    return counts, n_fwd
+    return counts, shapes
 
 
 @contextlib.contextmanager
@@ -879,6 +1064,108 @@ def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
         f"B={B} {fwd[('bias', B)]:.3f} vs {fwd[('flash', B)]:.3f} "
         f"({'bias' if fwd[('bias', B)] < fwd[('flash', B)] else 'flash'} faster)" for B in (16, 32, 64, 128)))
     return dict(forward_ms={f"{r} {B}": v for (r, B), v in fwd.items()}, texts_per_s=rate, hidden_rel=herr)
+
+
+ROUTES = ("flash", "bias", "row", "tiled")
+FOUR_ROUTE_SHAPES = ((128, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128))
+
+
+def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> dict:
+    """The four DeBERTa attention routes on gliclass-base int8-dynamic at
+    full width: classify_job on ``job_dict`` under "row" and under "tiled"
+    (run_path: texts/s, forwards, peak memory, profile, agreement with the
+    CPU) with the exact launch counts per forward; the whole forward at
+    [B, 512] for B = 128, 32, 16, 8 and at [B, 128] for B = 128, 32 with the
+    route forced (CUDA events, two turns in opposite orders); one forward of
+    the 512 bucket under "tiled" launching K10; fp32 hidden states of row and
+    tiled against flash."""
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.ops.fused_attention import attention_route
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    L = cfg.backbone.num_hidden_layers
+    # classify_job first, so that each path's peak memory holds its own engine only.
+    records = {}
+    for r in ("row", "tiled"):
+        counts, shapes = run_path(cfg, qparams, tok, job_dict, "int8-dynamic", dev, 8,
+                                  f"classify_job attn_route={r}", profile=True, attn_route=r)
+        records[r] = counts, shapes
+        label = f"{r} route"
+        others = ("abs_pos_table", "bias_fused_attention")
+        if r == "row":
+            expect_launches(counts, "row_disentangled_attention", L * len(shapes), label)
+            others += ("flash_disentangled_attention", "windowed_pos_tables", "tiled_attention")
+        else:
+            n32 = sum(1 for _, s in shapes if s % 32 == 0)
+            if not any(s == 512 for _, s in shapes):
+                fail("tiled route: the job ran no forward in the 512 bucket")
+            expect_launches(counts, "windowed_pos_tables", 2 * L * n32, label)
+            expect_launches(counts, "tiled_attention", L * n32, label)
+            if n32 < len(shapes):
+                expect_launches(counts, "flash_disentangled_attention", L * (len(shapes) - n32), label)
+            else:
+                others += ("flash_disentangled_attention",)
+            others += ("row_disentangled_attention",)
+        for name in others:
+            expect_none(counts, name, label)
+    rt = RuntimeConfig(batch_size=128, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
+                       seq_buckets=SEQ_LADDER, label_buckets=(8,))
+    engines = {"flash": InferenceEngine(cfg, qparams, dataclasses.replace(rt, attn_route="flash"), device=dev)}
+    for r in ROUTES[1:]:
+        engines[r] = InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt, attn_route=r), device=dev)
+    texts = {512: make_job(rng, 0, 128), 128: make_job(rng, 128, 0)}
+    batches, inputs = {}, {}
+    for S, jd in texts.items():
+        batches[S] = tok.encode_batch(pack_prompts(jd["texts"], jd["labels"], True, cfg.prompt_first),
+                                      max_length=512, pad_to=S)
+        if batches[S].seq_length != S:
+            fail(f"four routes: texts meant for the {S} bucket pad to {batches[S].seq_length}")
+        inputs[S] = engines["flash"]._device_inputs(batches[S].input_ids, batches[S].attention_mask)
+
+    fwd, wins = {}, []
+    for B, S in FOUR_ROUTE_SHAPES:
+        ids, mask = (t[:B] for t in inputs[S])
+        times = {r: [] for r in ROUTES}
+        for order in (ROUTES, ROUTES[::-1]):
+            for r in order:
+                times[r].append(time_ms(lambda: engines[r]._forward(ids, mask, 8), iters=3, warmup=1))
+        fwd[(B, S)] = {r: statistics.median(t) for r, t in times.items()}
+        log(f"forward [{B}, {S}] gliclass-base int8-dynamic, route ms (median; turns "
+            f"{'-'.join(ROUTES)} then reversed): " + "; ".join(
+                f"{r} {fwd[(B, S)][r]:.3f} ({', '.join(f'{t:.3f}' for t in times[r])})" for r in ROUTES))
+        for r in ("row", "tiled"):
+            if all(times[r][t] < min(times[o][t] for o in ("flash", "bias")) for t in range(2)):
+                wins.append((r, B, S))
+    log("row or tiled faster than both flash and bias in both turns: " + (str(wins) if wins else "nowhere"))
+    log("auto route: " + ", ".join(f"[{B}, {S}] {attention_route(S, B, 64)}" for B, S in fwd))
+
+    # The 512 bucket launches K10 (and K9 twice) in each of its 12 layers.
+    reset_counts()
+    engines["tiled"]._forward(*(t[:16] for t in inputs[512]), 8)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"one tiled forward at [16, 512]: launches {json.dumps(counts)}")
+    expect_launches(counts, "tiled_attention", L, "tiled route, 512 bucket")
+    expect_launches(counts, "windowed_pos_tables", 2 * L, "tiled route, 512 bucket")
+
+    # fp32 (INT8 weight-only) hidden states of two texts, each route against flash.
+    rt32 = dataclasses.replace(rt, compute_dtype="float32", quant_mode="int8")
+    herr = {}
+    for S in (512, 128):
+        two = tok.encode_batch(pack_prompts(texts[S]["texts"][:2], texts[S]["labels"], True, cfg.prompt_first),
+                               max_length=512, pad_to=S)
+        valid = torch.from_numpy(two.attention_mask).bool()
+        hs = {r: hidden_states(InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt32, attn_route=r),
+                                               device=dev), two) for r in ("flash", "row", "tiled")}
+        for r in ("row", "tiled"):
+            herr[(r, S)] = ((hs[r][valid] - hs["flash"][valid]).norm() / hs["flash"][valid].norm()).item()
+    log("fp32 hidden states against the flash route on the card, 2 texts: " + "; ".join(
+        f"{r} S={S} rel L2 {e:.3e}" for (r, S), e in herr.items()) + " (tol 1e-4)")
+    for (r, S), e in herr.items():
+        if not e <= 1e-4:
+            fail(f"four routes: {r} and flash fp32 hidden states differ by {e} (relative) at S={S}")
+    return records
 
 
 def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, int]:
@@ -1055,6 +1342,11 @@ def main() -> int:
             "abs_pos_table": check_abs_pos_table(torch.Generator(device=dev).manual_seed(args.seed + 6), dev),
             "bias_fused_attention": check_bias_attention(torch.Generator(device=dev).manual_seed(args.seed + 7),
                                                          dev),
+            "row_disentangled_attention": check_row_attention(
+                torch.Generator(device=dev).manual_seed(args.seed + 8), dev),
+            "windowed_pos_tables": check_windowed_pos_table(
+                torch.Generator(device=dev).manual_seed(args.seed + 9), dev),
+            "tiled_attention": check_tiled_attention(torch.Generator(device=dev).manual_seed(args.seed + 10), dev),
         }
 
     # Each kernel's launches come from the run of the path it serves.
@@ -1070,15 +1362,17 @@ def main() -> int:
         log(f"gliclass-base params: {n_params / 1e6:.1f} M (INT8 layers), made and quantized in "
             f"{time.perf_counter() - t0:.1f} s")
         job = make_job(rng, 384, 16)
-        counts, n_fwd = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 8,
-                                 "main path int8-dynamic", profile=True)
+        counts, shapes = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 8,
+                                  "main path int8-dynamic", profile=True)
+        n_fwd = len(shapes)
         for name in ("flash_disentangled_attention", "fused_ffn_w8a8"):
             expect_launches(counts, name, bb.num_hidden_layers * n_fwd, "main path")
             launches[name], paths[name] = counts[name], "gliclass-base int8-dynamic"
 
     with phase("phase 4: gliclass-base weight-only int8"):
         sub = dict(job, texts=job["texts"][:128] + job["texts"][-4:])
-        counts, n_fwd = run_path(cfg, qparams, tok, sub, "int8", dev, 4, "weight-only int8")
+        counts, shapes = run_path(cfg, qparams, tok, sub, "int8", dev, 4, "weight-only int8")
+        n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_wonly", bb.num_hidden_layers * n_fwd, "weight-only path")
         if counts["int8_matmul"] <= 0:
             fail("weight-only path did not launch int8_matmul")
@@ -1089,14 +1383,24 @@ def main() -> int:
         route_measurement(cfg, qparams, tok, np.random.default_rng([args.seed, 7]), dev)
         torch.cuda.empty_cache()
 
-    with phase("phase 6: serve path, GLiClassServer over the bias route"):
+    with phase("phase 6: the four attention routes, gliclass-base int8-dynamic"):
+        records = four_routes(cfg, qparams, tok, job, np.random.default_rng([args.seed, 9]), dev)
+        counts, _ = records["row"]
+        launches["row_disentangled_attention"] = counts["row_disentangled_attention"]
+        paths["row_disentangled_attention"] = "gliclass-base int8-dynamic classify_job, attn_route=row"
+        counts, _ = records["tiled"]
+        for name in ("windowed_pos_tables", "tiled_attention"):
+            launches[name], paths[name] = counts[name], "gliclass-base int8-dynamic classify_job, attn_route=tiled"
+        torch.cuda.empty_cache()
+
+    with phase("phase 7: serve path, GLiClassServer over the bias route"):
         counts, n_fwd = serve_path(cfg, qparams, tok, np.random.default_rng([args.seed, 8]), dev)
         for name in ("abs_pos_table", "bias_fused_attention"):
             launches[name], paths[name] = counts[name], "serve: gliclass-base int8-dynamic, attn_route=bias"
     del qparams
     torch.cuda.empty_cache()
 
-    with phase("phase 7: gliclass-qwen-1.5B int8-dynamic"):
+    with phase("phase 8: gliclass-qwen-1.5B int8-dynamic"):
         bb = qwen2_config("1.5b")
         tok = PromptTokenizer(WordTokenizer(bb.vocab_size))
         cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
@@ -1111,15 +1415,16 @@ def main() -> int:
         job = make_job(rng, 384, 16)
         # 28 layers: the 0.2% per layer drift of run_path's note gives about
         # 6%; the bound leaves room for the longer (512-bucket) rows.
-        counts, n_fwd = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 4,
-                                 "qwen-1.5B int8-dynamic", batch_size=64, hidden_tol=0.15, profile=True)
+        counts, shapes = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 4,
+                                  "qwen-1.5B int8-dynamic", batch_size=64, hidden_tol=0.15, profile=True)
+        n_fwd = len(shapes)
         expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * n_fwd, "qwen path")
         launches["causal_flash_attention"] = counts["causal_flash_attention"]
         paths["causal_flash_attention"] = "gliclass-qwen-1.5B int8-dynamic"
         del qparams
         torch.cuda.empty_cache()
 
-    with phase("phase 8: llama-1.3B geometry, 4 of 24 layers, int8-dynamic"):
+    with phase("phase 9: llama-1.3B geometry, 4 of 24 layers, int8-dynamic"):
         bb = dataclasses.replace(llama_config("1.3b"), num_hidden_layers=4)
         tok = PromptTokenizer(WordTokenizer(bb.vocab_size))
         cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
@@ -1127,8 +1432,9 @@ def main() -> int:
         rng = np.random.default_rng([args.seed, 6])
         qparams = make_decoder_params(rng, bb, cfg.hidden_size)
         job = make_job(rng, 64, 16)
-        counts, n_fwd = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 4,
-                                 "llama-1.3B (4 of 24 layers) int8-dynamic", batch_size=64)
+        counts, shapes = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 4,
+                                  "llama-1.3B (4 of 24 layers) int8-dynamic", batch_size=64)
+        n_fwd = len(shapes)
         expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * n_fwd, "llama path")
         del qparams
 
@@ -1143,6 +1449,12 @@ def main() -> int:
         "abs_pos_table": ("gliclass/c_tpu_torch/csrc/abs_pos_table.cu", "gliclass/c_tpu/ops/fused_attention.py:470"),
         "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention.cu",
                                  "gliclass/c_tpu/ops/fused_attention.py:547"),
+        "row_disentangled_attention": ("gliclass/c_tpu_torch/csrc/row_disentangled_attention.cu",
+                                       "gliclass/c_tpu/ops/fused_attention.py:91"),
+        "windowed_pos_tables": ("gliclass/c_tpu_torch/csrc/windowed_pos_table.cu",
+                                "gliclass/c_tpu/ops/fused_attention.py:743"),
+        "tiled_attention": ("gliclass/c_tpu_torch/csrc/tiled_disentangled_attention.cu",
+                            "gliclass/c_tpu/ops/fused_attention.py:810"),
     }
     kernels = []
     for name, r in rec.items():

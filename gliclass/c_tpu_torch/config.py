@@ -23,17 +23,13 @@ DEFAULT_MAX_LENGTH = 2048
 DEFAULT_THRESHOLD = 0.5
 
 
-ATTN_ROUTES = ("auto", "flash", "bias")
+# Every value of the JAX package's GLICLASS_TPU_ATTN_ROUTE. "table" and
+# "xla" force the materialized-score path (models/deberta.py score_attention).
+ATTN_ROUTES = ("auto", "flash", "bias", "row", "tiled", "table", "xla")
 
 
 def check_attn_route(route: str) -> str:
-    """Validate an attention route name. The JAX package's whole-row and
-    tiled routes are not ported yet and raise rather than run another."""
-    if route in ("row", "tiled"):
-        raise NotImplementedError(
-            f"attention route {route!r} is not ported to the GPU yet "
-            "(ROADMAP.md queue 2, PR B); use 'auto', 'flash' or 'bias'"
-        )
+    """Validate an attention route name."""
     if route not in ATTN_ROUTES:
         raise ValueError(f"unknown attention route {route!r}; expected one of {ATTN_ROUTES}")
     return route
@@ -97,10 +93,13 @@ class RuntimeConfig:
     # (engine.fuse_qkv_params). Math-identical.
     fuse_qkv: bool = False
     # DeBERTa attention route: "auto" (ops.fused_attention.attention_route
-    # picks by shape), "flash" (K1 everywhere) or "bias" (tables + bias
-    # products + K7 at every 8-aligned length). The JAX package reads the
-    # same choice from GLICLASS_TPU_ATTN_ROUTE at trace time; the port's CLI
-    # fills this field from that variable.
+    # picks by shape), "flash" (K1 everywhere), "bias" (tables + bias
+    # products + K7 at every 8-aligned length), "row" (K8 at 8-aligned
+    # lengths up to 512), "tiled" (windowed tables K9 + K10 at lengths that
+    # are multiples of 32; other lengths of these three run K1), or "table"
+    # / "xla" (the materialized-score path, no attention kernel). The JAX
+    # package reads the same choice from GLICLASS_TPU_ATTN_ROUTE at trace
+    # time; the port's CLI fills this field from that variable.
     attn_route: str = "auto"
 
     def __post_init__(self):

@@ -61,12 +61,6 @@ template <int R> inline int smem_floats(int S_pad) {
   return R * LD + G::KT * LD + G::KT * (R + 1) + R * (S_pad + 4);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Stage tile[r][jl] (r < R, jl < KT) of a bias whose element (i, j) lies at
 // b[i * si + j * sj]; the store goes to dst[r * ld_r + jl * ld_j]. Loads run
 // along j when sj == 1, else along i.

@@ -16,6 +16,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(v);
 }
 
+// The 16 bytes at src (16-byte aligned: 4 floats or 8 bf16 values) as floats.
+__device__ __forceinline__ void load16(const float* src, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x, out[2 * i + 1] = f.y;
+  }
+}
+
 // Round a float to the storage type T and back (the "cast P to v's dtype"
 // step of the reference kernels).
 template <typename T> __device__ __forceinline__ float round_to(float v) {
@@ -26,6 +42,32 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[a][b] += sum_k A[tr*4+a][k] * B[tc+16*b][k], k < KD, with A's rows LDA
+// floats apart and B's ldb. Thread (tr, tc) of a 16 x 16 grid owns rows
+// tr*4..tr*4+3 and columns tc, tc+16, ... (fp32 FMAs from shared memory).
+template <int NB, int KD, int LDA>
+__device__ __forceinline__ void mm_abt(const float* A, const float* B, int ldb,
+                                       int tr, int tc, float acc[4][NB]) {
+#pragma unroll 4
+  for (int k = 0; k < KD; ++k) {
+    float a[4], b[NB];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(tr * 4 + i) * LDA + k];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) b[j] = B[(tc + 16 * j) * ldb + k];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory once per process.

@@ -47,25 +47,6 @@ constexpr int THREADS = 256;
 constexpr int SMEM_FLOATS = 3 * BQ * LD + 2 * WIN * LD + 2 * BQ * LDW + BQ * LD;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 
-// acc[a][b] += sum_k A[tr*4+a][k] * B[tc+16*b][k], k < 64. Thread (tr, tc)
-// of a 16 x 16 grid owns rows tr*4..tr*4+3 and columns tc, tc+16, ...
-template <int NB>
-__device__ __forceinline__ void mm_abt(const float* A, const float* B, int ldb,
-                                       int tr, int tc, float acc[4][NB]) {
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    float a[4], b[NB];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(tr * 4 + i) * LD + k];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) b[j] = B[(tc + 16 * j) * ldb + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NB; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
 __device__ __forceinline__ float group16_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -150,14 +131,14 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-    mm_abt<4>(Qs, Ks, LD, tr, tc, s);
+    mm_abt<4, D, LD>(Qs, Ks, LD, tr, tc, s);
     {
       float acc[4][8];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-      mm_abt<8>(Qs, PK, LD, tr, tc, acc);
+      mm_abt<8, D, LD>(Qs, PK, LD, tr, tc, acc);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -166,7 +147,7 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-      mm_abt<8>(Ks, PQ, LD, tr, tc, acc);
+      mm_abt<8, D, LD>(Ks, PQ, LD, tr, tc, acc);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -201,7 +182,7 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int c = 0; c < 4; ++c) o[a][c] *= alpha;
     }
     __syncthreads();
-    mm_abt<4>(Ps, Vt, LD, tr, tc, o);
+    mm_abt<4, D, LD>(Ps, Vt, LD, tr, tc, o);
   }
 
 #pragma unroll

@@ -3,17 +3,19 @@
 Parameters are the JAX package's nested dict of tensors; the L layers are
 stacked on a leading axis and run by a Python loop over ``[L, ...]`` slices.
 
-Disentangled attention takes one of two kernel routes (ops/fused_attention),
+Disentangled attention takes one of four kernel routes (ops/fused_attention),
 chosen once per forward from (S, B) by ``attention_route``: the flash route
 (K1), which forms the c2p/p2c terms per tile so that no [B, h, S, S] tensor
-is built, or the bias route (K6 tables, bias products, K7). Both start from
-the position tables projected once per layer, their rows taken for each
-relative offset with a static 1-D index (:func:`rel_bias_columns`, the
-Toeplitz structure: the bucketed position depends only on i - j).
+is built; the bias route (K6 tables, bias products, K7); the row route (K8,
+whole score rows on chip); or the tiled route (K9 windowed tables, K10). All
+start from the position tables projected once per layer, their rows taken
+for each relative offset with a static 1-D index (:func:`rel_bias_columns`,
+the Toeplitz structure: the bucketed position depends only on i - j).
 :func:`score_attention` keeps the materialized-score formulation (relative-
-axis products skewed by :func:`rel_to_abs`, pair mask) as the reference the
-tests hold the kernel route against, and serves configurations outside the
-kernel route (one of c2p/p2c, or no relative attention).
+axis products skewed by :func:`rel_to_abs`, pair mask): the reference the
+tests hold the kernel routes against, the path of the "table"/"xla" routes,
+and the path of configurations outside the kernel routes (one of c2p/p2c,
+or no relative attention).
 """
 
 from __future__ import annotations
@@ -25,7 +27,13 @@ import numpy as np
 import torch
 
 from ..config import BackboneConfig
-from ..ops.fused_attention import attention_route, flash_disentangled_attention, table_bias_attention
+from ..ops.fused_attention import (
+    attention_route,
+    flash_disentangled_attention,
+    row_disentangled_attention,
+    table_bias_attention,
+    tiled_bias_attention,
+)
 from ..ops.fused_ffn import fused_ffn
 from ..ops.layers import layer_norm, linear, masked_softmax
 
@@ -151,7 +159,8 @@ def disentangled_attention(
     route: str = "flash",
 ) -> torch.Tensor:
     """One disentangled self-attention block through a kernel route,
-    ``route`` "flash" (K1) or "bias" (K6 + bias products + K7).
+    ``route`` "flash" (K1), "bias" (K6 + bias products + K7), "row" (K8) or
+    "tiled" (K9 + K10).
 
     c2p_cols/p2c_cols: [2S-1] int64 rows of the projected position table per
     relative offset (:func:`rel_bias_columns`); key_mask: [B, S] int32."""
@@ -161,11 +170,15 @@ def disentangled_attention(
     pos_q_flat, pos_k_flat = _pos_qk(p_attn, rel_emb, cfg, compute_dtype)
     pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols).contiguous()
     pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols).contiguous()
+    # The bias and tiled routes store biases or tables in the compute dtype
+    # (JAX models/deberta.py bias_dtype: fp32 in fp32 mode, else the compute
+    # dtype); their kernels add them in fp32.
     if route == "bias":
-        # Biases are stored in fp32 in fp32 mode and in the compute dtype
-        # otherwise (JAX models/deberta.py bias_dtype); K7 adds them in fp32.
-        score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
-        ctx = table_bias_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale, score_dtype)
+        ctx = table_bias_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale, compute_dtype)
+    elif route == "tiled":
+        ctx = tiled_bias_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale, compute_dtype)
+    elif route == "row":
+        ctx = row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
     else:
         ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
     return linear(p_attn["o"], _merge_heads(ctx), compute_dtype)
@@ -216,17 +229,17 @@ def encoder_layer(
     cfg: BackboneConfig,
     compute_dtype,
     key_mask: torch.Tensor,
-    route: str | None,
+    route: str,
 ) -> torch.Tensor:
     """Post-LN transformer layer: attn -> add&norm -> FFN -> add&norm.
-    ``route``: the kernel route, or None for the score formulation."""
-    if route is not None:
-        attn_out = disentangled_attention(
-            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route
-        )
-    else:
+    ``route``: a kernel route, or "score" for the score formulation."""
+    if route == "score":
         attn_out = score_attention(
             p["attn"], x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg, compute_dtype
+        )
+    else:
+        attn_out = disentangled_attention(
+            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route
         )
     x = layer_norm(p["attn"]["ln"], attn_out + x, cfg.layer_norm_eps)
     h = fused_ffn(p["ffn"]["up"], p["ffn"]["down"], x, cfg.hidden_act, compute_dtype)
@@ -286,7 +299,7 @@ def deberta_encode(
     else:
         rel_emb = torch.zeros((2 * att_span, cfg.hidden_size), dtype=compute_dtype, device=dev)
 
-    route = attention_route(S, B, cfg.head_dim, attn_route) if kernel_route(cfg) else None
+    route = attention_route(S, B, cfg.head_dim, attn_route) if kernel_route(cfg) else "score"
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
     for i in range(n_layers):

@@ -43,6 +43,11 @@ _SIGNATURES = {
     "gct_bias_fused_attention": [
         _I, _I, _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _I, _I, _I, _F, _P,
     ],
+    "gct_row_disentangled_attention": [_I, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "gct_windowed_pos_table": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "gct_tiled_disentangled_attention": [
+        _I, _I, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+    ],
 }
 
 _LIB = None

@@ -1,4 +1,4 @@
-"""DeBERTa disentangled attention, two routes with the same result.
+"""DeBERTa disentangled attention, four kernel routes with the same result.
 
     s[i, j] = (q_i.k_j + q_i.pos_k_rel[j-i+S-1] + k_j.pos_q_rel[i-j+S-1]) / scale
     out_i   = softmax_j(s[i, :], keys masked at -1e30) . v
@@ -9,7 +9,13 @@ relative terms per tile and never materializes scores. The bias route
 batch-independent position tables (:func:`abs_pos_table`, kernel K6), forms
 the two [B, h, S, S] biases as batched products (torch.matmul), and feeds
 them to a softmax kernel that keeps whole score rows on chip
-(:func:`bias_fused_attention`, kernel K7). :func:`attention_route` picks one.
+(:func:`bias_fused_attention`, kernel K7). The row route
+(:func:`row_disentangled_attention`, kernel K8) keeps whole score rows on
+chip and forms c2p/p2c there from the relative tables. The tiled route
+(:func:`tiled_bias_attention`) builds windowed absolute tables
+(:func:`windowed_pos_tables`, kernel K9) and runs a flash kernel that
+contracts q and k with them per tile (:func:`tiled_attention`, kernel K10).
+:func:`attention_route` picks one.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/*.cu``) or raises;
 on a CPU tensor it runs its ``*_plain`` version, the same function computed
@@ -27,12 +33,16 @@ import torch
 from ..config import check_attn_route
 from . import _build
 
-# Kernel launches since the last reset (the main path's proof): K1, K6, K7.
+# Kernel launches since the last reset (the main path's proof): K1, K6, K7,
+# K8, K9, K10.
 launches = 0
 launches_table = 0
 launches_bias = 0
+launches_row = 0
+launches_win_table = 0
+launches_tiled = 0
 
-HEAD_DIM = 64  # the kernel's head width (DeBERTa-v3: 768 / 12)
+HEAD_DIM = 64  # the kernels' head width (DeBERTa-v3: 768 / 12)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
@@ -43,22 +53,60 @@ def rel_index(S: int, device) -> torch.Tensor:
     return r[None, :] - r[:, None] + (S - 1)
 
 
-def flash_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
-    """Dense reference of the kernel. q, k, v [B, h, S, d]; pos_*_rel
-    [h, 2S-1, d]; attention_mask [B, S] (1 = valid key) -> [B, h, S, d]."""
+def _rel_biases(q, k, pos_k_rel, pos_q_rel):
+    """fp32 c2p[b,h,i,j] = q_i.pos_k_rel[j-i+S-1] and p2c[b,h,i,j] =
+    k_j.pos_q_rel[i-j+S-1], [B, h, S, S] each."""
     B, h, S, d = q.shape
-    qf, kf = q.float(), k.float()
-    qk = qf @ kf.transpose(-1, -2)
-    qp = torch.einsum("bhid,hmd->bhim", qf, pos_k_rel.float())  # [B, h, S, 2S-1]
-    kp = torch.einsum("bhjd,hmd->bhjm", kf, pos_q_rel.float())
+    qp = torch.einsum("bhid,hmd->bhim", q.float(), pos_k_rel.float())  # [B, h, S, 2S-1]
+    kp = torch.einsum("bhjd,hmd->bhjm", k.float(), pos_q_rel.float())
     idx = rel_index(S, q.device).expand(B, h, S, S)
-    c2p = torch.gather(qp, -1, idx)                    # qp[i, j-i+S-1]
-    p2c = torch.gather(kp, -1, idx).transpose(-1, -2)  # kp[j, i-j+S-1]
-    s = (qk + c2p + p2c) * (1.0 / scale)
+    return torch.gather(qp, -1, idx), torch.gather(kp, -1, idx).transpose(-1, -2)
+
+
+def _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale):
+    """The flash kernels' result: softmax((q.k + c2p + p2c) / scale) . v
+    with exp(s - max) rounded to v's dtype before P.v and the sum divided
+    out after, as a running-max kernel computes it."""
+    s = (q.float() @ k.float().transpose(-1, -2) + c2p + p2c) * (1.0 / scale)
     s = torch.where(attention_mask[:, None, None, :] > 0, s, torch.full_like(s, _NEG))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     ctx = (p.to(v.dtype).float() @ v.float()) / p.sum(dim=-1, keepdim=True)
     return ctx.to(q.dtype)
+
+
+def _check_qkv(name, q, k, v, attention_mask):
+    """The checks every attention wrapper makes of q, k, v and the mask."""
+    B, h, S, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"{name}: head dim must be {HEAD_DIM}, got {d}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v shapes differ")
+    if q.stride() != k.stride() or q.stride() != v.stride() or q.stride(-1) != 1:
+        raise ValueError(f"{name}: q, k, v need equal strides and a unit last stride")
+    if attention_mask.dtype != torch.int32 or tuple(attention_mask.shape) != (B, S) or not attention_mask.is_contiguous():
+        raise ValueError(f"{name}: attention_mask must be contiguous int32 [B, S]")
+
+
+def _check_rel_tables(name, q, pos_k_rel, pos_q_rel):
+    h, S, d = q.shape[1:]
+    for label, t in (("pos_k_rel", pos_k_rel), ("pos_q_rel", pos_q_rel)):
+        if t.dtype != q.dtype or tuple(t.shape) != (h, 2 * S - 1, d) or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous {q.dtype} [{h}, {2 * S - 1}, {d}]")
+
+
+def _check_device(name, q, *others):
+    for t in others:
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def flash_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
+    """Dense reference of the kernel. q, k, v [B, h, S, d]; pos_*_rel
+    [h, 2S-1, d]; attention_mask [B, S] (1 = valid key) -> [B, h, S, d]."""
+    c2p, p2c = _rel_biases(q, k, pos_k_rel, pos_q_rel)
+    return _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale)
 
 
 def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
@@ -72,25 +120,13 @@ def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, 
             q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale
         )
     global launches
+    name = "flash_disentangled_attention"
     B, h, S, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_disentangled_attention: head dim must be {HEAD_DIM}, got {d}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_disentangled_attention: q/k/v must share float32 or bfloat16, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_disentangled_attention: q, k, v shapes differ")
-    if q.stride() != k.stride() or q.stride() != v.stride() or q.stride(-1) != 1:
-        raise ValueError("flash_disentangled_attention: q, k, v need equal strides and a unit last stride")
+    _check_qkv(name, q, k, v, attention_mask)
     if max(q.stride()[:3]) * B > 2**31 - 1:
-        raise ValueError("flash_disentangled_attention: strides exceed 32 bits")
-    for name, t in (("pos_k_rel", pos_k_rel), ("pos_q_rel", pos_q_rel)):
-        if t.dtype != q.dtype or tuple(t.shape) != (h, 2 * S - 1, d) or not t.is_contiguous():
-            raise ValueError(f"flash_disentangled_attention: {name} must be contiguous {q.dtype} [{h}, {2 * S - 1}, {d}]")
-    if attention_mask.dtype != torch.int32 or tuple(attention_mask.shape) != (B, S) or not attention_mask.is_contiguous():
-        raise ValueError("flash_disentangled_attention: attention_mask must be contiguous int32 [B, S]")
-    for t in (k, v, pos_k_rel, pos_q_rel, attention_mask):
-        if t.device != q.device:
-            raise ValueError("flash_disentangled_attention: all tensors must be on one device")
+        raise ValueError(f"{name}: strides exceed 32 bits")
+    _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
+    _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
     sb, sh, ss, _ = q.stride()
     rc = _build.lib().gct_flash_disentangled_attention(
@@ -98,7 +134,7 @@ def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, 
         pos_k_rel.data_ptr(), pos_q_rel.data_ptr(), attention_mask.data_ptr(),
         out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
     )
-    _build.check(rc, "flash_disentangled_attention")
+    _build.check(rc, name)
     launches += 1
     return out.permute(0, 2, 1, 3)
 
@@ -161,33 +197,23 @@ def bias_fused_attention(q, k, v, c2p, p2c, attention_mask, scale):
     if not q.is_cuda:
         return bias_fused_attention_plain(q, k, v, c2p, p2c, attention_mask, scale)
     global launches_bias
+    name = "bias_fused_attention"
     B, h, S, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"bias_fused_attention: head dim must be {HEAD_DIM}, got {d}")
+    _check_qkv(name, q, k, v, attention_mask)
     if not 1 <= S <= BIAS_MAX_SEQ:
-        raise ValueError(f"bias_fused_attention: S={S} outside 1..{BIAS_MAX_SEQ}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"bias_fused_attention: q/k/v must share float32 or bfloat16, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("bias_fused_attention: q, k, v shapes differ")
-    if q.stride() != k.stride() or q.stride() != v.stride() or q.stride(-1) != 1:
-        raise ValueError("bias_fused_attention: q, k, v need equal strides and a unit last stride")
-    for name, t in (("c2p", c2p), ("p2c", p2c)):
+        raise ValueError(f"{name}: S={S} outside 1..{BIAS_MAX_SEQ}")
+    for label, t in (("c2p", c2p), ("p2c", p2c)):
         if t.dtype not in _DTYPE_CODES or t.dtype != c2p.dtype or tuple(t.shape) != (B, h, S, S):
-            raise ValueError(f"bias_fused_attention: {name} must be float32 or bfloat16 [{B}, {h}, {S}, {S}], "
+            raise ValueError(f"{name}: {label} must be float32 or bfloat16 [{B}, {h}, {S}, {S}], "
                              "both of one type")
-    if attention_mask.dtype != torch.int32 or tuple(attention_mask.shape) != (B, S) or not attention_mask.is_contiguous():
-        raise ValueError("bias_fused_attention: attention_mask must be contiguous int32 [B, S]")
-    for t in (k, v, c2p, p2c, attention_mask):
-        if t.device != q.device:
-            raise ValueError("bias_fused_attention: all tensors must be on one device")
+    _check_device(name, q, k, v, c2p, p2c, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
     rc = _build.lib().gct_bias_fused_attention(
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[c2p.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], c2p.data_ptr(), *c2p.stride(), p2c.data_ptr(), *p2c.stride(),
         attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
     )
-    _build.check(rc, "bias_fused_attention")
+    _build.check(rc, name)
     launches_bias += 1
     return out.permute(0, 2, 1, 3)
 
@@ -212,31 +238,227 @@ def table_bias_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale,
                                 attention_mask, scale)
 
 
-def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
-    """"flash" or "bias" for one forward at sequence length S and batch B.
+# ---------------------------------------------------------------------------
+# The row route: K8 (whole score rows, relative terms formed in-kernel)
+# ---------------------------------------------------------------------------
+ROW_MAX_SEQ = 512  # K8 keeps 64 whole score rows on chip (JAX MAX_FUSED_SEQ)
 
-    A forced route wins: "flash" at any S, "bias" at any S that is a multiple
-    of 8 (with head_dim a multiple of 8), as the JAX package's
-    GLICLASS_TPU_ATTN_ROUTE does; elsewhere the default route runs. "row" and
-    "tiled" raise (not ported). "auto" follows the H100 measurement below."""
+
+def row_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
+    """Dense reference of K8 (JAX ``_kernel``): exact softmax over the whole
+    row, p normalised, then rounded to v's dtype before P.v."""
+    c2p, p2c = _rel_biases(q, k, pos_k_rel, pos_q_rel)
+    return bias_fused_attention_plain(q, k, v, c2p, p2c, attention_mask, scale)
+
+
+def row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
+    """Whole-row disentangled attention, kernel K8, S <= 512. Same arguments
+    and output layout as :func:`flash_disentangled_attention`; the softmax is
+    exact over each row and p is normalised before it is rounded to v's type
+    (the JAX package's ``fused_disentangled_attention``)."""
+    if not q.is_cuda:
+        return row_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale)
+    global launches_row
+    name = "row_disentangled_attention"
+    B, h, S, d = q.shape
+    _check_qkv(name, q, k, v, attention_mask)
+    if not 1 <= S <= ROW_MAX_SEQ:
+        raise ValueError(f"{name}: S={S} outside 1..{ROW_MAX_SEQ}")
+    _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
+    _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
+    out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
+    rc = _build.lib().gct_row_disentangled_attention(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+        pos_k_rel.data_ptr(), pos_q_rel.data_ptr(), attention_mask.data_ptr(),
+        out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
+    )
+    _build.check(rc, name)
+    launches_row += 1
+    return out.permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# The tiled route: K9 (windowed absolute tables) and K10 (flash attention
+# contracting q and k with them per tile)
+# ---------------------------------------------------------------------------
+TILED_BLK = 32  # the tables' block on the card: 48.8 MB each at h=12, S=512, bf16
+TILED_SEQ_MULTIPLE = 32  # K10's key tile
+
+
+def _win_index(S: int, blk: int, device) -> torch.Tensor:
+    """[2S/blk - 1, blk, blk] index with idx[w, x, y] = w*blk + y - x + blk - 1."""
+    w = torch.arange(2 * (S // blk) - 1, device=device)[:, None, None] * blk
+    r = torch.arange(blk, device=device)
+    return w + r[None, None, :] - r[None, :, None] + (blk - 1)
+
+
+def windowed_pos_tables_plain(pos_rel: torch.Tensor, blk: int) -> torch.Tensor:
+    """[h, 2S-1, d] -> [h, 2S/blk-1, blk, blk, d] (the kernel's layout: see
+    :func:`windowed_pos_tables`)."""
+    S = (pos_rel.shape[1] + 1) // 2
+    return pos_rel[:, _win_index(S, blk, pos_rel.device)]
+
+
+def windowed_pos_tables(pos_rel: torch.Tensor, blk: int) -> torch.Tensor:
+    """Windowed absolute position tables of the tiled route, kernel K9.
+
+    Returns [h, 2n-1, blk, blk, d] (n = S / blk) with
+    T[h, w, x, y, :] = pos_rel[h, w*blk + y - x + blk - 1, :]: the absolute
+    table restricted to the block-diagonal w = jb - ib + n - 1 of the
+    (query block ib, key block jb) tile, at (x, y) = (i, j) mod blk. The JAX
+    package's layout is [h, 2n-1, d, blk, blk]; here d is innermost, so that
+    the vector K10 contracts for one (x, y) pair is contiguous. Exact (a copy
+    of values)."""
+    if not pos_rel.is_cuda:
+        return windowed_pos_tables_plain(pos_rel, blk)
+    global launches_win_table
+    h, W, d = pos_rel.shape
+    S = (W + 1) // 2
+    if W % 2 != 1 or blk < 1 or S % blk:
+        raise ValueError(f"windowed_pos_tables: {W} relative rows (S={S}) are not 2S-1 with S a multiple of blk={blk}")
+    if pos_rel.dtype not in _DTYPE_CODES or not pos_rel.is_contiguous():
+        raise ValueError("windowed_pos_tables: pos_rel must be contiguous float32 or bfloat16")
+    n_win = 2 * (S // blk) - 1
+    out = torch.empty((h, n_win, blk, blk, d), dtype=pos_rel.dtype, device=pos_rel.device)
+    rc = _build.lib().gct_windowed_pos_table(
+        _DTYPE_CODES[pos_rel.dtype], pos_rel.data_ptr(), out.data_ptr(), h, S, d, blk,
+        _build.stream_ptr(pos_rel),
+    )
+    _build.check(rc, "windowed_pos_tables")
+    launches_win_table += 1
+    return out
+
+
+def _tile_tables(twc, twq, S):
+    """The [h, S, S, d] absolute tables the windowed ones stand for: c2p's
+    entry of (i, j) in window jb - ib + n - 1 at (i mod blk, j mod blk),
+    p2c's in window ib - jb + n - 1 at (j mod blk, i mod blk)."""
+    blk = twc.shape[2]
+    n = S // blk
+    r = torch.arange(S, device=twc.device)
+    ib, x = r // blk, r % blk
+    Tc = twc[:, ib[None, :] - ib[:, None] + n - 1, x[:, None], x[None, :]]
+    Tq = twq[:, ib[:, None] - ib[None, :] + n - 1, x[None, :], x[:, None]]
+    return Tc, Tq
+
+
+def tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale):
+    """Dense reference of K10: c2p[b,h,i,j] = q_i . Tc[h,i,j], p2c[b,h,i,j] =
+    k_j . Tq[h,i,j] from the windowed tables, then the flash softmax."""
+    Tc, Tq = _tile_tables(twc, twq, q.shape[2])
+    c2p = torch.einsum("bhie,hije->bhij", q.float(), Tc.float())
+    p2c = torch.einsum("bhje,hije->bhij", k.float(), Tq.float())
+    return _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale)
+
+
+def tiled_attention(q, k, v, twc, twq, attention_mask, scale):
+    """Flash attention over the windowed tables, kernel K10 (JAX
+    ``_tiled_kernel``). q, k, v and the mask as for
+    :func:`flash_disentangled_attention`, S a multiple of 32; twc, twq:
+    :func:`windowed_pos_tables` of pos_k_rel and pos_q_rel, one type
+    (float32 or bfloat16), one blk dividing S. Returns [B, h, S, 64], laid
+    out as [B, S, h, 64]."""
+    if not q.is_cuda:
+        return tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale)
+    global launches_tiled
+    name = "tiled_attention"
+    B, h, S, d = q.shape
+    _check_qkv(name, q, k, v, attention_mask)
+    if S % TILED_SEQ_MULTIPLE:
+        raise ValueError(f"{name}: S={S} is not a multiple of {TILED_SEQ_MULTIPLE}")
+    blk = twc.shape[2] if twc.dim() == 5 else 0
+    want = (h, 2 * (S // blk) - 1, blk, blk, d) if blk and S % blk == 0 else None
+    for label, t in (("twc", twc), ("twq", twq)):
+        if (want is None or t.dtype not in _DTYPE_CODES or t.dtype != twc.dtype or tuple(t.shape) != want
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {label} must be a contiguous float32 or bfloat16 windowed table "
+                             f"[h, 2S/blk-1, blk, blk, {d}] with blk dividing S={S}, both of one type")
+    _check_device(name, q, k, v, twc, twq, attention_mask)
+    out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
+    rc = _build.lib().gct_tiled_disentangled_attention(
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[twc.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *q.stride()[:3], twc.data_ptr(), twq.data_ptr(), attention_mask.data_ptr(), out.data_ptr(),
+        B, h, S, blk, 1.0 / scale, _build.stream_ptr(q),
+    )
+    _build.check(rc, name)
+    launches_tiled += 1
+    return out.permute(0, 2, 1, 3)
+
+
+def tiled_bias_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale,
+                         score_dtype=torch.float32, blk: int | None = None):
+    """The tiled route (JAX ``tiled_bias_attention``): two K9 tables in
+    ``score_dtype`` at block ``blk`` (default :data:`TILED_BLK`), then K10.
+    Same arguments and result as :func:`flash_disentangled_attention`."""
+    blk = blk or TILED_BLK
+    twc = windowed_pos_tables(pos_k_rel.to(score_dtype), blk)
+    twq = windowed_pos_tables(pos_q_rel.to(score_dtype), blk)
+    return tiled_attention(q, k, v, twc, twq, attention_mask, scale)
+
+
+def tiled_bias_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale,
+                               score_dtype=torch.float32, blk: int | None = None):
+    """:func:`tiled_bias_attention` with the plain versions of K9 and K10."""
+    blk = blk or TILED_BLK
+    twc = windowed_pos_tables_plain(pos_k_rel.to(score_dtype), blk)
+    twq = windowed_pos_tables_plain(pos_q_rel.to(score_dtype), blk)
+    return tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale)
+
+
+def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
+    """The route of one forward at sequence length S and batch B: "flash",
+    "bias", "row", "tiled" or "score" (the materialized-score path).
+
+    A forced route wins where its kernels take the shape, as the JAX
+    package's GLICLASS_TPU_ATTN_ROUTE does (its predicates ``use_bias_route``,
+    ``fusable``, ``use_tiled_route``): "flash" at any S; "bias" at S a
+    multiple of 8 up to 2048; "row" at S a multiple of 8 up to 512; "tiled"
+    at S a multiple of 32; each with head_dim a multiple of 8. At other S
+    these three run "flash" (where the JAX package takes its score path:
+    the same function). "table" and "xla" force the score path at any S.
+    "auto" takes the route :func:`_auto_route` names, on the same terms."""
     check_attn_route(route)
-    bias_ok = S % 8 == 0 and head_dim % 8 == 0 and S <= BIAS_MAX_SEQ
+    aligned = S % 8 == 0 and head_dim % 8 == 0
+    if route in ("table", "xla"):
+        return "score"
     if route == "bias":
-        return "bias" if bias_ok else "flash"
+        return "bias" if aligned and S <= BIAS_MAX_SEQ else "flash"
+    if route == "row":
+        return "row" if aligned and S <= ROW_MAX_SEQ else "flash"
+    if route == "tiled":
+        return "tiled" if S % TILED_SEQ_MULTIPLE == 0 and head_dim % 8 == 0 else "flash"
     if route == "flash":
         return "flash"
-    return "bias" if bias_ok and _auto_bias(S, B) else "flash"
+    return attention_route(S, B, head_dim, _auto_route(S, B))
 
 
-def _auto_bias(S: int, B: int) -> bool:
-    """The "auto" rule: the bias route where it was measured faster on the
-    H100, else K1.
+# (S, B) where chip_smoke.py's four-route phase measured the row or tiled
+# route faster than both flash and bias in both turns of two calls (see
+# _auto_route).
+_AUTO_MEASURED = {(512, 32): "row", (512, 8): "row"}
 
-    Measured by chip_smoke.py's route phase: the whole gliclass-base
-    "int8-dynamic" forward at S=512, CUDA events, two alternating turns
-    (NVIDIA H100 80GB HBM3, 700.00 W), bias vs flash:
-    B=16 75.2 vs 67.0 ms, B=32 129.9 vs 127.2, B=64 236.0 vs 241.3,
-    B=128 446.1 vs 470.2. The tables cost the same at any batch and K7 saves
-    on K1 per row, so the bias route wins from B=64 on. Lengths other than
-    the 512 bucket were not measured and keep K1 (the tables grow as S^2)."""
-    return S == 512 and B >= 64
+
+def _auto_route(S: int, B: int) -> str:
+    """The "auto" rule: the route measured fastest on the H100 at (S, B),
+    else K1. Whole gliclass-base "int8-dynamic" forward, CUDA events, two
+    turns (NVIDIA H100 80GB HBM3, 700.00 W).
+
+    Bias vs flash at S=512 (chip_smoke.py's route phase): B=16 75.2 vs
+    67.0 ms, B=32 129.9 vs 127.2, B=64 236.0 vs 241.3, B=128 446.1 vs 470.2.
+    The tables cost the same at any batch and K7 saves on K1 per row, so the
+    bias route wins from B=64 on.
+
+    The four routes (the four-route phase; flash, bias, row, tiled ms, each
+    the median of two turns in opposite orders, the second of two calls):
+    [128, 512] 469.4, 445.6, 461.3, 493.8; [32, 512] 126.6, 129.4, 124.5,
+    130.2; [16, 512] 66.9, 75.5, 66.6, 71.5; [8, 512] 37.6, 48.4, 36.8,
+    40.4; [128, 128] 89.7, 85.6, 85.5, 89.2; [32, 128] 30.2, 34.9, 32.2,
+    31.2. Row won both turns against flash and bias at [32, 512] and
+    [8, 512] in both calls, by 1-2%, and takes those shapes. At [16, 512] it
+    won one turn of two in each call; at [128, 128] and [32, 128] the winner
+    changed between the calls (row and bias within 0.2% at [128, 128]; the
+    [32, 128] forward read 44 ms in the first call): these keep the rule
+    above. Other shapes were not measured and keep K1."""
+    if S == 512 and B >= 64:
+        return "bias"
+    return _AUTO_MEASURED.get((S, B), "flash")

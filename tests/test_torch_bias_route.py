@@ -103,21 +103,27 @@ def test_attention_route_predicate():
         assert route(S, Bt, 64, "bias") == "bias"
     assert route(90, 4, 64, "bias") == "flash"
     assert route(96, 4, 12, "bias") == "flash"
-    # auto: the measured H100 rule (ops/fused_attention.py _auto_bias):
-    # bias only in the 512 bucket from 64 rows on
+    # auto: the measured H100 rule (ops/fused_attention.py _auto_route):
+    # bias in the 512 bucket from 64 rows on, row at the batches where it
+    # was measured fastest, K1 elsewhere
     for S in (56, 128, 384, 1024, 2048):
         for Bt in (1, 16, 128):
             assert route(S, Bt, 64) == "flash", (S, Bt)
-    for Bt, want in ((1, "flash"), (16, "flash"), (32, "flash"), (64, "bias"), (128, "bias")):
+    for Bt, want in ((1, "flash"), (8, "row"), (16, "flash"), (32, "row"), (64, "bias"), (128, "bias")):
         assert route(512, Bt, 64) == want, Bt
-    # not ported: raise, never substitute another route
-    for bad in ("row", "tiled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            route(512, 128, 64, bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcfg.RuntimeConfig(attn_route=bad)
+    assert route(512, 8, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
+    # row (K8) and tiled (K9 + K10) where their kernels take the shape, else
+    # K1; the runtime config accepts both
+    for forced, ok, not_ok in (("row", (56, 512), (1024, 90)), ("tiled", (128, 2048), (56, 88))):
+        for S in ok:
+            assert route(S, 128, 64, forced) == forced, (forced, S)
+        for S in not_ok:
+            assert route(S, 128, 64, forced) == "flash", (forced, S)
+        assert tcfg.RuntimeConfig(attn_route=forced).attn_route == forced
+    # "table" and "xla" force the score path at any length; unknown names raise
+    assert route(512, 128, 64, "xla") == route(90, 4, 64, "table") == "score"
     with pytest.raises(ValueError):
-        route(512, 128, 64, "xla")
+        route(512, 128, 64, "bogus")
 
 
 def _tiny(S):
@@ -156,3 +162,19 @@ def test_gliclass_probs_bias_route_matches_jax(S, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     flash = t_probs(tp, ti, tm, tc, 4, attn_route="flash").numpy()
     np.testing.assert_allclose(got, flash, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["table", "xla"])
+def test_gliclass_probs_score_routes_match_jax(route, monkeypatch):
+    """"table" and "xla" force the materialized-score path in both packages
+    (JAX: every kernel predicate declines; the port: score_attention), fp32."""
+    S = 32
+    jc, tc, ids, mask = _tiny(S)
+    params = jax.tree.map(np.asarray, init_gliclass_params(jax.random.key(4), jc))
+    monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", route)
+    assert not (JFA.use_bias_route(S, 8, jnp.float32, 3) or JFA.fusable(S, 8, jnp.float32)
+                or JFA.use_tiled_route(S, 8, jnp.float32) or JFA._use_flash(S, 3))
+    want = np.asarray(j_probs(params, jnp.asarray(ids), jnp.asarray(mask), jc, 4))
+    tp = params_from_numpy(params, "cpu")
+    got = t_probs(tp, torch.from_numpy(ids), torch.from_numpy(mask), tc, 4, attn_route=route).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

@@ -85,19 +85,22 @@ def test_run_matches_jax_cli(tiny_bundle, job_file, tmp_path, capsys, extra):
 
 def test_run_bias_route_from_environment(tiny_bundle, job_file, tmp_path, capsys, monkeypatch):
     """GLICLASS_TPU_ATTN_ROUTE, the JAX package's variable, sets the port's
-    route: bias gives the flash route's results; an unported route raises."""
+    route: bias, row, tiled and the score path give the flash route's
+    results; an unknown route raises."""
     results = {}
-    for route in ("flash", "bias"):
+    for route in ("flash", "bias", "row", "tiled", "xla"):
         monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", route)
         js = str(tmp_path / f"{route}.json")
         assert main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, "--json-out", js], device="cpu") == 0
         results[route] = json.load(open(js))
     capsys.readouterr()
-    for a, b in zip(results["bias"], results["flash"]):
-        np.testing.assert_allclose([d["score"] for d in a["decisions"]],
-                                   [d["score"] for d in b["decisions"]], atol=1e-5)
-    monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", "tiled")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for route in ("bias", "row", "tiled", "xla"):
+        for a, b in zip(results[route], results["flash"]):
+            assert [d["label"] for d in a["decisions"]] == [d["label"] for d in b["decisions"]]
+            np.testing.assert_allclose([d["score"] for d in a["decisions"]],
+                                       [d["score"] for d in b["decisions"]], atol=1e-5)
+    monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", "bogus")
+    with pytest.raises(ValueError, match="unknown attention route"):
         main(["run", job_file, "--bundle", tiny_bundle, *FLAGS], device="cpu")
 
 
@@ -151,6 +154,30 @@ def test_serve_wiring(tiny_bundle, monkeypatch):
     res = seen["resp"]["results"]
     assert len(res) == 1 and len(res[0]["decisions"]) == 1
     assert res[0]["decisions"][0]["label"] in ("science", "sports")
+
+
+@pytest.mark.parametrize("route", ["row", "tiled"])
+def test_serve_warmup_on_row_and_tiled_routes(tiny_bundle, monkeypatch, route):
+    """`serve --warmup` under GLICLASS_TPU_ATTN_ROUTE=row|tiled warms every
+    bucket through that route and answers as the engine does."""
+    seen = {}
+
+    def drive_one_request(self):
+        seen["route"] = self.runtime.attn_route
+        self.start()
+        body = json.dumps({"texts": ["science fox runs"], "labels": ["science", "sports"],
+                           "classification_type": "single-label"}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}/classify", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            seen["resp"] = json.loads(r.read())
+
+    monkeypatch.setenv("GLICLASS_TPU_ATTN_ROUTE", route)
+    monkeypatch.setattr(serving.GLiClassServer, "serve_forever", drive_one_request)
+    rc = main(["serve", "--bundle", tiny_bundle, "--port", "0", "--warmup", "--warmup-max-seq", "64", *FLAGS],
+              device="cpu")
+    assert rc == 0 and seen["route"] == route
+    assert {d["label"] for d in seen["resp"]["results"][0]["decisions"]} <= {"science", "sports"}
 
 
 def test_serve_sigterm_graceful(tiny_bundle):

@@ -395,3 +395,219 @@ def test_engine_bias_route_on_card(dev):
     flash = InferenceEngine(cfg, params, dataclasses.replace(rt, attn_route="flash")).run(batch, 4)
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(got, flash, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The row route (K8) and the tiled route (K9 windowed tables, K10), and both
+# routes through the engine.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 8, 56, 64, 65, 88, 128, 200, 256, 384, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_row_kernel_matches_plain(dev, S, dtype, tol):
+    """K8 over lengths up to 512 (one to eight row tiles, ragged edges), with
+    ragged, single and leading-masked keys (_attn_inputs)."""
+    args = _attn_inputs(dev, 4, 3, S, dtype, S + 11)
+    scale = math.sqrt(3 * 64)
+    FA.launches_row = 0
+    got = FA.row_disentangled_attention(*args, scale)
+    assert FA.launches_row == 1
+    want = FA.row_disentangled_attention_plain(*args, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert got.permute(0, 2, 1, 3).is_contiguous()  # [B, S, h, d] in memory
+
+
+def test_row_kernel_row_without_valid_key_is_the_mean_of_v(dev):
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 100, torch.float32, 1)
+    mask[0] = 0
+    got = FA.row_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    want = FA.row_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (got[0] - v[0].mean(dim=1, keepdim=True)).abs().max().item() <= 1e-5
+
+
+def test_row_kernel_checks_inputs(dev):
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="int32"):
+        FA.row_disentangled_attention(q, k, v, pk, pq, mask.long(), 8.0)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.row_disentangled_attention(q[..., :32], k[..., :32], v[..., :32], pk, pq, mask, 8.0)
+    with pytest.raises(ValueError, match="pos_k_rel"):
+        FA.row_disentangled_attention(q, k, v, pk[:, 1:], pq, mask, 8.0)
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 1, 520, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="512"):
+        FA.row_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_and_tiled_kernels_rows_not_16_byte_aligned(dev, dtype):
+    """q/k/v rows 65 elements apart and one element off alignment, and
+    relative tables one element off: the kernels' element-wise loads."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    S = 96
+    q, k, v = (torch.randn(4, 3, S, 65, generator=g, device=dev).to(dtype)[..., 1:] for _ in range(3))
+    flat = torch.randn(2 * 3 * (2 * S - 1) * 64 + 1, generator=g, device=dev).to(dtype)
+    pk, pq = flat[1:].view(2, 3, 2 * S - 1, 64)
+    mask = torch.ones(4, S, dtype=torch.int32, device=dev)
+    mask[1, 40:] = 0
+    for fn, plain in ((FA.row_disentangled_attention, FA.row_disentangled_attention_plain),
+                      (FA.tiled_bias_attention, FA.tiled_bias_attention_plain)):
+        got = fn(q, k, v, pk, pq, mask, 8.0)
+        want = plain(q, k, v, pk, pq, mask, 8.0)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("S,blk", [(32, 32), (64, 8), (88, 8), (128, 32), (512, 32), (512, 64), (2048, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_table_kernel_equals_plain(dev, S, blk, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + blk)
+    pos = torch.randn(3 if S <= 512 else 1, 2 * S - 1, 64, generator=g, device=dev).to(dtype)
+    FA.launches_win_table = 0
+    got = FA.windowed_pos_tables(pos, blk)
+    assert FA.launches_win_table == 1
+    want = FA.windowed_pos_tables_plain(pos, blk)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)  # a copy of values: exact
+
+
+@pytest.mark.parametrize("d", [6, 8, 128])
+def test_windowed_table_kernel_other_widths(dev, d):
+    """d whose rows are not whole 16-byte vectors takes the elementwise copy."""
+    pos = torch.randn(2, 2 * 96 - 1, d, generator=torch.Generator(device=dev).manual_seed(d), device=dev)
+    assert torch.equal(FA.windowed_pos_tables(pos, 16), FA.windowed_pos_tables_plain(pos, 16))
+
+
+def test_windowed_table_kernel_checks_inputs(dev):
+    pos = torch.randn(2, 2 * 96 - 1, 64, device=dev)
+    with pytest.raises(ValueError, match="multiple of blk"):
+        FA.windowed_pos_tables(pos, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.windowed_pos_tables(pos.transpose(0, 1).contiguous().transpose(0, 1), 32)
+
+
+@pytest.mark.parametrize("S", [32, 64, 96, 128, 256, 512, 2048])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_tiled_kernel_matches_plain(dev, S, dtype, tol):
+    """K10 on K9's tables (blk 32, the route's) against its plain version on
+    the same tables, with ragged, single and leading-masked keys."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3 if S <= 512 else 1, S, dtype, S + 13)
+    scale = math.sqrt(3 * 64)
+    twc, twq = FA.windowed_pos_tables(pk, 32), FA.windowed_pos_tables(pq, 32)
+    FA.launches_tiled = 0
+    got = FA.tiled_attention(q, k, v, twc, twq, mask, scale)
+    assert FA.launches_tiled == 1
+    want = FA.tiled_attention_plain(q, k, v, twc, twq, mask, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+@pytest.mark.parametrize("B,blk,dtype,table_dtype", [
+    (10, 8, torch.float32, torch.float32), (10, 64, torch.bfloat16, torch.bfloat16),
+    (9, 128, torch.float32, torch.bfloat16), (1, 16, torch.bfloat16, torch.float32)])
+def test_tiled_kernel_batch_groups_blocks_and_types(dev, B, blk, dtype, table_dtype):
+    """Batch sizes that leave a group of 8 rows part full, other table blocks,
+    and tables in another type than q/k/v."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, max(B, 4), 3, 128, dtype, B + blk)
+    q, k, v, mask = q[:B], k[:B], v[:B], mask[:B].contiguous()
+    twc = FA.windowed_pos_tables(pk.to(table_dtype), blk)
+    twq = FA.windowed_pos_tables(pq.to(table_dtype), blk)
+    got = FA.tiled_attention(q, k, v, twc, twq, mask, 8.0)
+    want = FA.tiled_attention_plain(q, k, v, twc, twq, mask, 8.0)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_tiled_kernel_row_without_valid_key_is_the_mean_of_v(dev):
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 96, torch.float32, 2)
+    mask[0] = 0
+    got = FA.tiled_bias_attention(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got[0] - v[0].mean(dim=1, keepdim=True)).abs().max().item() <= 1e-5
+
+
+def test_tiled_kernel_checks_inputs(dev):
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 64, torch.float32, 0)
+    twc, twq = FA.windowed_pos_tables(pk, 32), FA.windowed_pos_tables(pq, 32)
+    with pytest.raises(ValueError, match="int32"):
+        FA.tiled_attention(q, k, v, twc, twq, mask.long(), 8.0)
+    with pytest.raises(ValueError, match="one type"):
+        FA.tiled_attention(q, k, v, twc, twq.to(torch.bfloat16), mask, 8.0)
+    with pytest.raises(ValueError, match="windowed table"):
+        FA.tiled_attention(q, k, v, twc[:, 1:].contiguous(), twq, mask, 8.0)
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 48, torch.float32, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        FA.tiled_bias_attention(q, k, v, pk, pq, mask, 8.0, blk=16)
+
+
+@pytest.mark.parametrize("S", [64, 128, 512, 2048])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_row_and_tiled_routes_match_flash_route(dev, S, dtype, tol):
+    """The row route (K8, S <= 512) and the tiled route (K9 twice, K10) against
+    K1 on the same inputs. bf16 stores the tiled route's tables in bf16,
+    which are the bf16 inputs' values: no extra rounding."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3 if S <= 512 else 1, S, dtype, S + 17)
+    scale = math.sqrt(3 * 64)
+    flash = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, scale)
+    FA.launches_win_table = FA.launches_tiled = 0
+    tiled = FA.tiled_bias_attention(q, k, v, pk, pq, mask, scale, score_dtype=dtype)
+    assert (FA.launches_win_table, FA.launches_tiled) == (2, 1)
+    torch.cuda.synchronize()
+    assert (tiled.float() - flash.float()).abs().max().item() <= tol
+    if S <= 512:
+        row = FA.row_disentangled_attention(q, k, v, pk, pq, mask, scale)
+        torch.cuda.synchronize()
+        assert (row.float() - flash.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("route", ["row", "tiled"])
+def test_engine_row_and_tiled_routes_on_card(dev, route):
+    """The engine with attn_route "row" (K8 once per layer) or "tiled" (K9
+    twice and K10 once per layer at S a multiple of 32, K1 at other S) agrees
+    with the CPU (plain versions) and with the flash route on the card; its
+    warmup runs every bucket through the route that bucket takes."""
+    bb = BackboneConfig(vocab_size=300, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        intermediate_size=256, max_position_embeddings=128, position_buckets=16)
+    cfg = GLiClassConfig(hidden_size=128, class_token_index=7, backbone=bb)
+    rng = np.random.default_rng(3)
+    dense = lambda i, o, lead=(): {"w": rng.normal(0, 0.05, (*lead, i, o)).astype(np.float32),
+                                   "b": rng.normal(0, 0.02, (*lead, o)).astype(np.float32)}
+    ln = lambda lead=(): {"scale": np.ones((*lead, 128), np.float32), "bias": np.zeros((*lead, 128), np.float32)}
+    L = (2,)
+    params = {
+        "backbone": {
+            "embeddings": {"word": rng.normal(size=(300, 128)).astype(np.float32), "ln": ln()},
+            "rel_embeddings": rng.normal(size=(32, 128)).astype(np.float32), "rel_ln": ln(),
+            "layers": {"attn": {**{n: dense(128, 128, L) for n in "qkvo"}, "ln": ln(L)},
+                       "ffn": {"up": dense(128, 256, L), "down": dense(256, 128, L), "ln": ln(L)}},
+        },
+        "head": {p: {"linear_1": dense(128, 512), "linear_2": dense(512, 128)}
+                 for p in ("text_projector", "classes_projector")},
+    }
+    ids = rng.integers(10, 290, size=(5, 64)).astype(np.int32)
+    ids[:, 1:6:2] = 7
+    mask = np.ones_like(ids)
+    mask[3, 25:] = 0
+    batch = TokenizedBatch(ids, mask, mask.sum(1).astype(np.int32))
+    rt = RuntimeConfig(batch_size=8, compute_dtype="float32", attn_route=route, seq_buckets=(64, 88),
+                       label_buckets=(4,))
+    card = InferenceEngine(cfg, params, rt)
+    FA.launches = FA.launches_row = FA.launches_win_table = FA.launches_tiled = 0
+    got = card.run(batch, 4)
+    counts = (FA.launches, FA.launches_row, FA.launches_win_table, FA.launches_tiled)
+    assert counts == ((0, 2, 0, 0) if route == "row" else (0, 0, 4, 2))
+    want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
+    flash = InferenceEngine(cfg, params, dataclasses.replace(rt, attn_route="flash")).run(batch, 4)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, flash, atol=1e-5)
+    # warmup: rows 1, 2, 4, 8 at S = 64 and 88 (88 is no multiple of 32)
+    FA.launches = FA.launches_row = FA.launches_win_table = FA.launches_tiled = 0
+    assert card.warmup() == 8
+    counts = (FA.launches, FA.launches_row, FA.launches_win_table, FA.launches_tiled)
+    assert counts == ((0, 16, 0, 0) if route == "row" else (8, 0, 16, 8))

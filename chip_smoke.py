@@ -16,13 +16,16 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    bias route's absolute position table (exact), K7 its softmax over
    precomputed biases, K8 whole-row disentangled attention, K9 the tiled
    route's windowed position tables (exact), K10 its flash attention over
-   them.
+   them. K8 and K10 run their bf16 tensor-core variants on bf16 inputs
+   (asserted by their counters) and their CUDA-core variants on fp32 and
+   mixed types; the CUDA-core variants are timed on the bf16 inputs too.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
    in bf16 "int8-dynamic"; texts/s (median of 3 passes), stage timings,
-   launch counts of K1 and K2 (reset just before the pass, read just
-   after), a torch.profiler breakdown of device time by kernel, peak device
+   launch counts of K2 and of the attention kernels of the route "auto"
+   takes at each forward's (rows, seq) (reset just before the pass, read
+   just after), a torch.profiler breakdown of device time by kernel, peak device
    memory, and agreement of the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
    launch counts of K4 (12 per forward) and K3, agreement with the CPU.
@@ -33,13 +36,14 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    forward, K1 none on the bias run), peak memory, a profile of the bias
    run, and fp32 hidden states bias against flash (1e-4).
 6. The four attention routes on the same model, "int8-dynamic": the whole
-   forward at [B, 512] for B = 128, 32, 16, 8 and [B, 128] for B = 128, 32
-   with the route forced to
+   forward at [B, 512] for B = 128, 32, 16, 8, [B, 128] for B = 128, 32 and
+   the main job's [128, 56] and [128, 88] with the route forced to
    flash, bias, row (K8) and tiled (K9 + K10), two turns in opposite
    orders; classify_job on phase 3's job under row and under tiled (texts/s,
    forwards, peak memory, a profile, agreement with the CPU) with exact
-   launch counts per forward (row: K8 12, K1 none; tiled: K9 24 and K10 12
-   in the buckets that are multiples of 32, K1 12 in the others); one
+   launch counts per forward (row: K8 12 on tensor cores, K1 none; tiled:
+   K9 24 and K10 12 on tensor cores in the buckets that are multiples of
+   32, K1 12 in the others); one
    forward of the 512 bucket launching K10 12 times; fp32 hidden states of
    row and tiled against flash at S=512 and 128 (1e-4).
 7. Serve path: GLiClassServer on 127.0.0.1 (the same model, attn_route
@@ -509,6 +513,21 @@ def sdpa_rel_ms(q, k, v, pos_k, pos_q, mask, scale) -> float:
     return ms
 
 
+def cuda_core_ms(entry: str, q, k, v, tables, mask, scale, *extra) -> float:
+    """Time of the CUDA-core K8 or K10 on the same bf16 inputs, its C entry
+    called directly (the wrappers send bf16 to the tensor-core variants):
+    the earlier version beside the new one, in the same call."""
+    from gliclass.c_tpu_torch.ops import _build
+
+    B, h, S, d = q.shape
+    out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
+    codes = (1,) * (2 if entry == "gct_tiled_disentangled_attention" else 1)
+    fn = getattr(_build.lib(), entry)
+    args = (*codes, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *(t.data_ptr() for t in tables),
+            mask.data_ptr(), out.data_ptr(), B, h, S, *extra, 1.0 / scale, _build.stream_ptr(q))
+    return time_ms(lambda: _build.check(fn(*args), entry))
+
+
 def attention_bound(B: int, S: int, extra_bytes: float) -> tuple[float, str, float, float]:
     """Bound of the four-product attention kernels (q.k, c2p, p2c, p.v: 2*S*S*d
     operations each per (b, h)) on bf16 inputs: q, k, v read and out written
@@ -527,21 +546,27 @@ def check_row_attention(gen: torch.Generator, dev) -> dict:
     # bf16: as K7 (the same softmax): the fp32 score sums run in another order
     # than the plain version's matmuls and p is rounded to bf16 before p.v.
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
     worst = 0.0
     # (B, S, dtype, timed): the 512 bucket at the route phase's two batches, a
-    # ragged short bucket (88: a part row tile and key tile), and fp32.
+    # ragged short bucket (88: a part row tile and key tile), and fp32. bf16
+    # runs the tensor-core variant, fp32 the CUDA-core one.
     cases = ((128, 512, torch.bfloat16, True), (16, 512, torch.bfloat16, True),
              (16, 88, torch.bfloat16, False), (16, 88, torch.float32, False), (8, 512, torch.float32, False))
     for B, S, dtype, timed in cases:
         args = rel_inputs(gen, dev, B, S, dtype)
+        FA.launches_row = FA.launches_row_tc = 0
         out = FA.row_disentangled_attention(*args, scale)
+        variant, tc = FA.kernel_variant(dtype), int(dtype == torch.bfloat16)
+        if (FA.launches_row, FA.launches_row_tc) != (1, tc):
+            fail(f"K8 B={B} S={S} {dtype}: {FA.launches_row} launches, {FA.launches_row_tc} on tensor cores; "
+                 f"expected 1 and {tc}")
         ref = FA.row_disentangled_attention_plain(*args, scale)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"K8 B={B} S={S} {dtype}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"K8 row_disentangled_attention B={B} h={h} S={S} d={d} {str(dtype)[6:]} ragged keys: "
+        log(f"K8 row_disentangled_attention [{variant}] B={B} h={h} S={S} d={d} {str(dtype)[6:]} ragged keys: "
             f"max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
         if err > tol[dtype]:
             fail(f"K8 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
@@ -550,18 +575,20 @@ def check_row_attention(gen: torch.Generator, dev) -> dict:
             continue
         worst = max(worst, err)
         ms = time_ms(lambda: FA.row_disentangled_attention(*args, scale))
+        cc = cuda_core_ms("gct_row_disentangled_attention", *args[:3], args[3:5], args[5], scale)
         plain = time_ms(lambda: FA.row_disentangled_attention_plain(*args, scale), iters=5)
         lib = sdpa_rel_ms(*args, scale)
         bms, by, ops, nbytes = attention_bound(B, S, 2 * h * (2 * S - 1) * d * 2)
-        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
-            f"{lib:.4f} ms | bound {bms:.4f} ms ({by})")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
-                         ("nbytes", nbytes)):
+        log(f"   time: kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | plain {plain:.4f} ms | "
+            f"scaled_dot_product_attention {lib:.4f} ms | bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("cuda_core_ms", cc),
+                         ("ops", ops), ("nbytes", nbytes)):
             tot[key] += val
         torch.cuda.empty_cache()
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
-                bound_by=by, max_abs_err=worst, shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
+                bound_by=by, max_abs_err=worst, variant=FA.TENSOR_CORE, cuda_core_ms=tot["cuda_core_ms"],
+                shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
 
 
 def check_windowed_pos_table(gen: torch.Generator, dev) -> dict:
@@ -605,22 +632,32 @@ def check_tiled_attention(gen: torch.Generator, dev) -> dict:
     # bf16: as K1 (the same online softmax): fp32 sums in another order, and
     # exp(s - m) rounded to bf16 at the running max, not the row's.
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
     worst = 0.0
-    cases = ((128, 512, torch.bfloat16, True), (16, 512, torch.bfloat16, True),
-             (16, 128, torch.bfloat16, False), (16, 128, torch.float32, False), (8, 512, torch.float32, False))
-    for B, S, dtype, timed in cases:
+    # (B, S, dtype, table dtype, timed): bf16 with bf16 tables (the main
+    # path's case) runs the tensor-core variant; fp32 and mixed types the
+    # CUDA-core one. B=17 leaves a group of 16 batch rows part full.
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = ((128, 512, bf, bf, True), (16, 512, bf, bf, True), (17, 128, bf, bf, False),
+             (16, 128, f32, f32, False), (16, 128, bf, f32, False), (8, 512, f32, f32, False))
+    for B, S, dtype, table_dtype, timed in cases:
         q, k, v, pos_k, pos_q, mask = rel_inputs(gen, dev, B, S, dtype)
-        twc, twq = FA.windowed_pos_tables(pos_k, blk), FA.windowed_pos_tables(pos_q, blk)
+        twc = FA.windowed_pos_tables(pos_k.to(table_dtype), blk)
+        twq = FA.windowed_pos_tables(pos_q.to(table_dtype), blk)
         args = (q, k, v, twc, twq, mask, scale)
+        FA.launches_tiled = FA.launches_tiled_tc = 0
         out = FA.tiled_attention(*args)
+        variant, tc = FA.kernel_variant(dtype, table_dtype), int(dtype == table_dtype == bf)
+        if (FA.launches_tiled, FA.launches_tiled_tc) != (1, tc):
+            fail(f"K10 B={B} S={S} {dtype}/{table_dtype}: {FA.launches_tiled} launches, {FA.launches_tiled_tc} "
+                 f"on tensor cores; expected 1 and {tc}")
         ref = FA.tiled_attention_plain(*args)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"K10 B={B} S={S} {dtype}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"K10 tiled_attention B={B} h={h} S={S} d={d} blk={blk} {str(dtype)[6:]} ragged keys: "
-            f"max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
+        log(f"K10 tiled_attention [{variant}] B={B} h={h} S={S} d={d} blk={blk} {str(dtype)[6:]} "
+            f"(tables {str(table_dtype)[6:]}) ragged keys: max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
         if err > tol[dtype]:
             fail(f"K10 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
         del ref
@@ -629,18 +666,19 @@ def check_tiled_attention(gen: torch.Generator, dev) -> dict:
             continue
         worst = max(worst, err)
         ms = time_ms(lambda: FA.tiled_attention(*args))
+        cc = cuda_core_ms("gct_tiled_disentangled_attention", q, k, v, (twc, twq), mask, scale, blk)
         plain = time_ms(lambda: FA.tiled_attention_plain(*args), iters=5)
         torch.cuda.empty_cache()
         lib = sdpa_rel_ms(q, k, v, pos_k, pos_q, mask, scale)
         bms, by, ops, nbytes = attention_bound(B, S, 2 * twc.numel() * 2)
-        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
-            f"{lib:.4f} ms | bound {bms:.4f} ms ({by})")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
-                         ("nbytes", nbytes)):
+        log(f"   time: kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | plain {plain:.4f} ms | "
+            f"scaled_dot_product_attention {lib:.4f} ms | bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("cuda_core_ms", cc),
+                         ("ops", ops), ("nbytes", nbytes)):
             tot[key] += val
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
-                bound_by=by, max_abs_err=worst,
+                bound_by=by, max_abs_err=worst, variant=FA.TENSOR_CORE, cuda_core_ms=tot["cuda_core_ms"],
                 shape=f"sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16, tables blk={blk})")
 
 
@@ -787,7 +825,10 @@ def counters() -> dict:
             "bias_fused_attention": (fused_attention, "launches_bias"),
             "row_disentangled_attention": (fused_attention, "launches_row"),
             "windowed_pos_tables": (fused_attention, "launches_win_table"),
-            "tiled_attention": (fused_attention, "launches_tiled")}
+            "tiled_attention": (fused_attention, "launches_tiled"),
+            # The tensor-core launches among those of K8 and K10.
+            "row_disentangled_attention_tc": (fused_attention, "launches_row_tc"),
+            "tiled_attention_tc": (fused_attention, "launches_tiled_tc")}
 
 
 def reset_counts() -> None:
@@ -953,9 +994,30 @@ def expect_launches(counts: dict, name: str, want: int, label: str) -> None:
         fail(f"{label}: {name} launched {counts[name]} times, expected {want}")
 
 
-def expect_none(counts: dict, name: str, label: str) -> None:
-    if counts[name] != 0:
-        fail(f"{label}: {name} launched {counts[name]} times, expected none")
+# Launches per layer of each attention route's kernels, in bf16 (where K8 and
+# K10 run their tensor-core variants).
+ROUTE_KERNELS = {
+    "flash": {"flash_disentangled_attention": 1},
+    "bias": {"abs_pos_table": 2, "bias_fused_attention": 1},
+    "row": {"row_disentangled_attention": 1, "row_disentangled_attention_tc": 1},
+    "tiled": {"windowed_pos_tables": 2, "tiled_attention": 1, "tiled_attention_tc": 1},
+}
+
+
+def expect_attention(counts: dict, shapes: list, L: int, label: str, route: str = "auto") -> None:
+    """Each attention kernel ran exactly as often as the route that
+    ``attention_route`` names for every (rows, seq) forward asks, L layers a
+    forward, and the others not at all."""
+    from gliclass.c_tpu_torch.ops.fused_attention import attention_route
+
+    want = {name: 0 for per in ROUTE_KERNELS.values() for name in per}
+    for rows, seq in shapes:
+        for name, n in ROUTE_KERNELS[attention_route(seq, rows, 64, route)].items():
+            want[name] += n * L
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{label}: {name} launched {counts[name]} times, expected {n} "
+                 f"(route {route!r} over forwards {shapes})")
 
 
 def count_forwards(engine) -> list:
@@ -1030,17 +1092,10 @@ def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
         if r in counts:
             continue
         counts[r] = read_counts()
-        n_fwd = len(shapes)
         log(f"{r} route: 128 texts of the 512 bucket in {wall:.4f} s = {128 / wall:.1f} texts/s; "
             f"forwards {shapes}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"launches {json.dumps(counts[r])}")
-        if r == "bias":
-            expect_launches(counts[r], "abs_pos_table", 2 * L * n_fwd, "bias route")
-            expect_launches(counts[r], "bias_fused_attention", L * n_fwd, "bias route")
-            expect_none(counts[r], "flash_disentangled_attention", "bias route")
-        else:
-            expect_launches(counts[r], "flash_disentangled_attention", L * n_fwd, "flash route")
-            expect_none(counts[r], "bias_fused_attention", "flash route")
+        expect_attention(counts[r], shapes, L, f"{r} route", r)
     for r in ("flash", "bias"):
         log(f"{r} route texts/s, turns flash-bias-bias-flash: {', '.join(f'{x:.1f}' for x in rate[r])}")
     profile_job(ZeroShotClassificationPipeline(engines["bias"], tok, engines["bias"].runtime), job,
@@ -1067,7 +1122,9 @@ def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
 
 
 ROUTES = ("flash", "bias", "row", "tiled")
-FOUR_ROUTE_SHAPES = ((128, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128))
+# The 512 bucket at four batches, the 128 bucket at two, and the main job's
+# two full short-text forwards, [128, 56] and [128, 88].
+FOUR_ROUTE_SHAPES = ((128, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128), (128, 56), (128, 88))
 
 
 def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> dict:
@@ -1075,8 +1132,8 @@ def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> d
     full width: classify_job on ``job_dict`` under "row" and under "tiled"
     (run_path: texts/s, forwards, peak memory, profile, agreement with the
     CPU) with the exact launch counts per forward; the whole forward at
-    [B, 512] for B = 128, 32, 16, 8 and at [B, 128] for B = 128, 32 with the
-    route forced (CUDA events, two turns in opposite orders); one forward of
+    FOUR_ROUTE_SHAPES with the route forced (CUDA events, two turns in
+    opposite orders); one forward of
     the 512 bucket under "tiled" launching K10; fp32 hidden states of row and
     tiled against flash."""
     from gliclass.c_tpu_torch.config import RuntimeConfig
@@ -1091,30 +1148,21 @@ def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> d
         counts, shapes = run_path(cfg, qparams, tok, job_dict, "int8-dynamic", dev, 8,
                                   f"classify_job attn_route={r}", profile=True, attn_route=r)
         records[r] = counts, shapes
-        label = f"{r} route"
-        others = ("abs_pos_table", "bias_fused_attention")
-        if r == "row":
-            expect_launches(counts, "row_disentangled_attention", L * len(shapes), label)
-            others += ("flash_disentangled_attention", "windowed_pos_tables", "tiled_attention")
-        else:
-            n32 = sum(1 for _, s in shapes if s % 32 == 0)
-            if not any(s == 512 for _, s in shapes):
-                fail("tiled route: the job ran no forward in the 512 bucket")
-            expect_launches(counts, "windowed_pos_tables", 2 * L * n32, label)
-            expect_launches(counts, "tiled_attention", L * n32, label)
-            if n32 < len(shapes):
-                expect_launches(counts, "flash_disentangled_attention", L * (len(shapes) - n32), label)
-            else:
-                others += ("flash_disentangled_attention",)
-            others += ("row_disentangled_attention",)
-        for name in others:
-            expect_none(counts, name, label)
+        if not any(s == 512 for _, s in shapes):
+            fail(f"{r} route: the job ran no forward in the 512 bucket")
+        # row: K8 (tensor cores) in every forward; tiled: K9 twice and K10
+        # (tensor cores) in the buckets that are multiples of 32, K1 in the others.
+        expect_attention(counts, shapes, L, f"{r} route", r)
     rt = RuntimeConfig(batch_size=128, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
                        seq_buckets=SEQ_LADDER, label_buckets=(8,))
     engines = {"flash": InferenceEngine(cfg, qparams, dataclasses.replace(rt, attn_route="flash"), device=dev)}
     for r in ROUTES[1:]:
         engines[r] = InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt, attn_route=r), device=dev)
     texts = {512: make_job(rng, 0, 128), 128: make_job(rng, 128, 0)}
+    # Short texts cut to fill the 56 and 88 buckets (8 labels take 19 tokens).
+    for S, n_words in ((56, 30), (88, 60)):
+        jd = make_job(rng, 128, 0)
+        texts[S] = dict(jd, texts=[" ".join(tx.split()[:n_words]) for tx in jd["texts"]])
     batches, inputs = {}, {}
     for S, jd in texts.items():
         batches[S] = tok.encode_batch(pack_prompts(jd["texts"], jd["labels"], True, cfg.prompt_first),
@@ -1134,10 +1182,10 @@ def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> d
         log(f"forward [{B}, {S}] gliclass-base int8-dynamic, route ms (median; turns "
             f"{'-'.join(ROUTES)} then reversed): " + "; ".join(
                 f"{r} {fwd[(B, S)][r]:.3f} ({', '.join(f'{t:.3f}' for t in times[r])})" for r in ROUTES))
-        for r in ("row", "tiled"):
-            if all(times[r][t] < min(times[o][t] for o in ("flash", "bias")) for t in range(2)):
-                wins.append((r, B, S))
-    log("row or tiled faster than both flash and bias in both turns: " + (str(wins) if wins else "nowhere"))
+        for r in ROUTES:
+            if all(times[r][t] < min(times[o][t] for o in ROUTES if o != r) for t in range(2)):
+                wins.append(((B, S), r))
+    log("fastest of the four routes in both turns (the \"auto\" rule's input): " + (str(wins) if wins else "nowhere"))
     log("auto route: " + ", ".join(f"[{B}, {S}] {attention_route(S, B, 64)}" for B, S in fwd))
 
     # The 512 bucket launches K10 (and K9 twice) in each of its 12 layers.
@@ -1146,8 +1194,7 @@ def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> d
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"one tiled forward at [16, 512]: launches {json.dumps(counts)}")
-    expect_launches(counts, "tiled_attention", L, "tiled route, 512 bucket")
-    expect_launches(counts, "windowed_pos_tables", 2 * L, "tiled route, 512 bucket")
+    expect_attention(counts, [(16, 512)], L, "tiled route, 512 bucket", "tiled")
 
     # fp32 (INT8 weight-only) hidden states of two texts, each route against flash.
     rt32 = dataclasses.replace(rt, compute_dtype="float32", quant_mode="int8")
@@ -1249,7 +1296,9 @@ def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, 
     reset_counts()
     shapes.clear()
     answers, wall = drive()
-    counts, n_fwd = read_counts(), len(shapes)
+    # The forwards of this pass (the profiled pass below records its own too).
+    counts, shapes = read_counts(), list(shapes)
+    n_fwd = len(shapes)
     with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=30) as resp:
         metrics = json.loads(resp.read())
     # The same traffic again under the profiler (device activity only), for
@@ -1279,9 +1328,7 @@ def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, 
         fail(f"serve path: /metrics counts {metrics['requests']} requests, {metrics['errors']} errors")
     if long_rows <= 16:
         fail(f"serve path: the 512 bucket saw at most {long_rows} rows, not above 16")
-    expect_launches(counts, "abs_pos_table", 2 * L * n_fwd, "serve path")
-    expect_launches(counts, "bias_fused_attention", L * n_fwd, "serve path")
-    expect_none(counts, "flash_disentangled_attention", "serve path")
+    expect_attention(counts, shapes, L, "serve path", "bias")
 
     # Each answer carries its own texts; its scores agree with classify_job.
     texts = [tx for reqs in bodies for b in reqs for tx in b["texts"]]
@@ -1349,8 +1396,9 @@ def main() -> int:
             "tiled_attention": check_tiled_attention(torch.Generator(device=dev).manual_seed(args.seed + 10), dev),
         }
 
-    # Each kernel's launches come from the run of the path it serves.
-    launches, paths = {}, {}
+    # Each kernel's launches come from the run of the path it serves; K8's
+    # and K10's tensor-core launches among them in launches_tc.
+    launches, paths, launches_tc = {}, {}, {}
     with phase("phase 3: gliclass-base int8-dynamic"):
         bb = deberta_v3_config("base")
         tok = PromptTokenizer(WordTokenizer(bb.vocab_size))
@@ -1365,15 +1413,20 @@ def main() -> int:
         counts, shapes = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 8,
                                   "main path int8-dynamic", profile=True)
         n_fwd = len(shapes)
-        for name in ("flash_disentangled_attention", "fused_ffn_w8a8"):
-            expect_launches(counts, name, bb.num_hidden_layers * n_fwd, "main path")
-            launches[name], paths[name] = counts[name], "gliclass-base int8-dynamic"
+        expect_launches(counts, "fused_ffn_w8a8", bb.num_hidden_layers * n_fwd, "main path")
+        # The attention kernels of the route "auto" takes at each forward's (rows, seq).
+        expect_attention(counts, shapes, bb.num_hidden_layers, "main path")
+        launches["fused_ffn_w8a8"], paths["fused_ffn_w8a8"] = counts["fused_ffn_w8a8"], "gliclass-base int8-dynamic"
+        if counts["flash_disentangled_attention"]:
+            launches["flash_disentangled_attention"] = counts["flash_disentangled_attention"]
+            paths["flash_disentangled_attention"] = "gliclass-base int8-dynamic"
 
     with phase("phase 4: gliclass-base weight-only int8"):
         sub = dict(job, texts=job["texts"][:128] + job["texts"][-4:])
         counts, shapes = run_path(cfg, qparams, tok, sub, "int8", dev, 4, "weight-only int8")
         n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_wonly", bb.num_hidden_layers * n_fwd, "weight-only path")
+        expect_attention(counts, shapes, bb.num_hidden_layers, "weight-only path")
         if counts["int8_matmul"] <= 0:
             fail("weight-only path did not launch int8_matmul")
         for name in ("int8_matmul", "fused_ffn_wonly"):
@@ -1387,10 +1440,16 @@ def main() -> int:
         records = four_routes(cfg, qparams, tok, job, np.random.default_rng([args.seed, 9]), dev)
         counts, _ = records["row"]
         launches["row_disentangled_attention"] = counts["row_disentangled_attention"]
+        launches_tc["row_disentangled_attention"] = counts["row_disentangled_attention_tc"]
         paths["row_disentangled_attention"] = "gliclass-base int8-dynamic classify_job, attn_route=row"
         counts, _ = records["tiled"]
         for name in ("windowed_pos_tables", "tiled_attention"):
             launches[name], paths[name] = counts[name], "gliclass-base int8-dynamic classify_job, attn_route=tiled"
+        launches_tc["tiled_attention"] = counts["tiled_attention_tc"]
+        if "flash_disentangled_attention" not in launches:  # "auto" took no K1 on the main path
+            launches["flash_disentangled_attention"] = counts["flash_disentangled_attention"]
+            paths["flash_disentangled_attention"] = ("gliclass-base int8-dynamic classify_job, attn_route=tiled "
+                                                     "(the buckets that are not multiples of 32)")
         torch.cuda.empty_cache()
 
     with phase("phase 7: serve path, GLiClassServer over the bias route"):
@@ -1449,21 +1508,26 @@ def main() -> int:
         "abs_pos_table": ("gliclass/c_tpu_torch/csrc/abs_pos_table.cu", "gliclass/c_tpu/ops/fused_attention.py:470"),
         "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention.cu",
                                  "gliclass/c_tpu/ops/fused_attention.py:547"),
-        "row_disentangled_attention": ("gliclass/c_tpu_torch/csrc/row_disentangled_attention.cu",
+        "row_disentangled_attention": ("gliclass/c_tpu_torch/csrc/row_disentangled_attention_tc.cu",
                                        "gliclass/c_tpu/ops/fused_attention.py:91"),
         "windowed_pos_tables": ("gliclass/c_tpu_torch/csrc/windowed_pos_table.cu",
                                 "gliclass/c_tpu/ops/fused_attention.py:743"),
-        "tiled_attention": ("gliclass/c_tpu_torch/csrc/tiled_disentangled_attention.cu",
+        "tiled_attention": ("gliclass/c_tpu_torch/csrc/tiled_disentangled_attention_tc.cu",
                             "gliclass/c_tpu/ops/fused_attention.py:810"),
     }
     kernels = []
     for name, r in rec.items():
+        if launches[name] <= 0:
+            fail(f"{name} was launched no time on its path ({paths[name]})")
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], "path": paths[name],
         })
+        if "variant" in r:  # K8 and K10: the tensor-core variant's record
+            kernels[-1].update(variant=r["variant"], launches_tc=launches_tc[name],
+                               cuda_core_ms=r["cuda_core_ms"])
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "gct_tiled_disentangled_attention": [
         _I, _I, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
     ],
+    "gct_row_disentangled_attention_tc": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "gct_tiled_disentangled_attention_tc": [
+        _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+    ],
 }
 
 _LIB = None

@@ -34,17 +34,32 @@ from ..config import check_attn_route
 from . import _build
 
 # Kernel launches since the last reset (the main path's proof): K1, K6, K7,
-# K8, K9, K10.
+# K8, K9, K10; launches_row and launches_tiled count both variants of K8 and
+# K10, launches_row_tc and launches_tiled_tc their tensor-core launches.
 launches = 0
 launches_table = 0
 launches_bias = 0
 launches_row = 0
 launches_win_table = 0
 launches_tiled = 0
+launches_row_tc = 0
+launches_tiled_tc = 0
 
 HEAD_DIM = 64  # the kernels' head width (DeBERTa-v3: 768 / 12)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
+
+
+TENSOR_CORE = "tensor-core bf16"
+CUDA_CORE = "cuda-core"
+
+
+def kernel_variant(*dtypes) -> str:
+    """The variant of K8 or K10 that takes inputs of these dtypes (q's, and
+    K10's tables'): the bf16 tensor-core kernels (``*_tc.cu``) when all are
+    bfloat16, else the CUDA-core kernels, which keep fp32's 1e-4 agreement
+    (TF32 tensor cores could not) and K10's mixed q/table types."""
+    return TENSOR_CORE if all(d == torch.bfloat16 for d in dtypes) else CUDA_CORE
 
 
 def rel_index(S: int, device) -> torch.Tensor:
@@ -255,10 +270,11 @@ def row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, sc
     """Whole-row disentangled attention, kernel K8, S <= 512. Same arguments
     and output layout as :func:`flash_disentangled_attention`; the softmax is
     exact over each row and p is normalised before it is rounded to v's type
-    (the JAX package's ``fused_disentangled_attention``)."""
+    (the JAX package's ``fused_disentangled_attention``). bf16 inputs launch
+    the tensor-core kernel, others the CUDA-core one (:func:`kernel_variant`)."""
     if not q.is_cuda:
         return row_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale)
-    global launches_row
+    global launches_row, launches_row_tc
     name = "row_disentangled_attention"
     B, h, S, d = q.shape
     _check_qkv(name, q, k, v, attention_mask)
@@ -267,13 +283,17 @@ def row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, sc
     _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
     _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
-    rc = _build.lib().gct_row_disentangled_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
-        pos_k_rel.data_ptr(), pos_q_rel.data_ptr(), attention_mask.data_ptr(),
-        out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pos_k_rel.data_ptr(),
+            pos_q_rel.data_ptr(), attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale,
+            _build.stream_ptr(q))
+    tc = kernel_variant(q.dtype) == TENSOR_CORE
+    if tc:
+        rc = _build.lib().gct_row_disentangled_attention_tc(*args)
+    else:
+        rc = _build.lib().gct_row_disentangled_attention(_DTYPE_CODES[q.dtype], *args)
     _build.check(rc, name)
     launches_row += 1
+    launches_row_tc += tc
     return out.permute(0, 2, 1, 3)
 
 
@@ -357,10 +377,11 @@ def tiled_attention(q, k, v, twc, twq, attention_mask, scale):
     :func:`flash_disentangled_attention`, S a multiple of 32; twc, twq:
     :func:`windowed_pos_tables` of pos_k_rel and pos_q_rel, one type
     (float32 or bfloat16), one blk dividing S. Returns [B, h, S, 64], laid
-    out as [B, S, h, 64]."""
+    out as [B, S, h, 64]. bf16 q/k/v with bf16 tables launch the tensor-core
+    kernel, other types the CUDA-core one (:func:`kernel_variant`)."""
     if not q.is_cuda:
         return tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale)
-    global launches_tiled
+    global launches_tiled, launches_tiled_tc
     name = "tiled_attention"
     B, h, S, d = q.shape
     _check_qkv(name, q, k, v, attention_mask)
@@ -375,13 +396,16 @@ def tiled_attention(q, k, v, twc, twq, attention_mask, scale):
                              f"[h, 2S/blk-1, blk, blk, {d}] with blk dividing S={S}, both of one type")
     _check_device(name, q, k, v, twc, twq, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
-    rc = _build.lib().gct_tiled_disentangled_attention(
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[twc.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *q.stride()[:3], twc.data_ptr(), twq.data_ptr(), attention_mask.data_ptr(), out.data_ptr(),
-        B, h, S, blk, 1.0 / scale, _build.stream_ptr(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], twc.data_ptr(), twq.data_ptr(),
+            attention_mask.data_ptr(), out.data_ptr(), B, h, S, blk, 1.0 / scale, _build.stream_ptr(q))
+    tc = kernel_variant(q.dtype, twc.dtype) == TENSOR_CORE
+    if tc:
+        rc = _build.lib().gct_tiled_disentangled_attention_tc(*args)
+    else:
+        rc = _build.lib().gct_tiled_disentangled_attention(_DTYPE_CODES[q.dtype], _DTYPE_CODES[twc.dtype], *args)
     _build.check(rc, name)
     launches_tiled += 1
+    launches_tiled_tc += tc
     return out.permute(0, 2, 1, 3)
 
 
@@ -432,33 +456,38 @@ def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
     return attention_route(S, B, head_dim, _auto_route(S, B))
 
 
-# (S, B) where chip_smoke.py's four-route phase measured the row or tiled
-# route faster than both flash and bias in both turns of two calls (see
-# _auto_route).
-_AUTO_MEASURED = {(512, 32): "row", (512, 8): "row"}
+# (S, B) where chip_smoke.py's four-route phase measured one route faster
+# than the other three in both turns of two calls (see _auto_route).
+_AUTO_MEASURED = {(512, 128): "row", (512, 32): "row", (512, 16): "row", (128, 128): "tiled",
+                  (56, 128): "row", (88, 128): "row"}
 
 
 def _auto_route(S: int, B: int) -> str:
     """The "auto" rule: the route measured fastest on the H100 at (S, B),
-    else K1. Whole gliclass-base "int8-dynamic" forward, CUDA events, two
-    turns (NVIDIA H100 80GB HBM3, 700.00 W).
+    else bias in the 512 bucket from 64 rows on, else K1. Whole gliclass-base
+    "int8-dynamic" forward, CUDA events (NVIDIA H100 80GB HBM3, 700.00 W).
 
     Bias vs flash at S=512 (chip_smoke.py's route phase): B=16 75.2 vs
     67.0 ms, B=32 129.9 vs 127.2, B=64 236.0 vs 241.3, B=128 446.1 vs 470.2.
     The tables cost the same at any batch and K7 saves on K1 per row, so the
-    bias route wins from B=64 on.
+    bias route wins from B=64 on, where no other route was measured.
 
-    The four routes (the four-route phase; flash, bias, row, tiled ms, each
-    the median of two turns in opposite orders, the second of two calls):
-    [128, 512] 469.4, 445.6, 461.3, 493.8; [32, 512] 126.6, 129.4, 124.5,
-    130.2; [16, 512] 66.9, 75.5, 66.6, 71.5; [8, 512] 37.6, 48.4, 36.8,
-    40.4; [128, 128] 89.7, 85.6, 85.5, 89.2; [32, 128] 30.2, 34.9, 32.2,
-    31.2. Row won both turns against flash and bias at [32, 512] and
-    [8, 512] in both calls, by 1-2%, and takes those shapes. At [16, 512] it
-    won one turn of two in each call; at [128, 128] and [32, 128] the winner
-    changed between the calls (row and bias within 0.2% at [128, 128]; the
-    [32, 128] forward read 44 ms in the first call): these keep the rule
-    above. Other shapes were not measured and keep K1."""
-    if S == 512 and B >= 64:
-        return "bias"
-    return _AUTO_MEASURED.get((S, B), "flash")
+    The four routes with K8 and K10 on tensor cores (the four-route phase;
+    flash, bias, row, tiled ms, each the median of two turns in opposite
+    orders; first call, then second): [128, 512] 469.8, 445.9, 310.6, 312.8
+    / 470.2, 444.4, 309.9, 311.7; [32, 512] 127.4, 130.1, 86.6, 87.5 /
+    127.3, 129.7, 86.3, 87.3; [16, 512] 67.6, 75.8, 46.9, 49.0 / 67.2, 75.1,
+    46.5, 47.4; [8, 512] 48.0, 54.0, 50.0, 50.6 / 37.9, 48.1, 33.8, 34.7;
+    [128, 128] 89.8, 86.1, 80.4, 79.4 / 89.0, 85.1, 79.8, 78.7; [32, 128]
+    44.4, 46.8, 38.9, 44.5 / 33.3, 37.0, 33.4, 38.1; [128, 56] 46.0, 46.3,
+    41.0, 43.0 / 42.3, 42.5, 40.4, 42.7; [128, 88] 70.0, 65.2, 61.0, 69.3 /
+    69.6, 65.0, 60.8, 70.4. Row beat the other three in both turns of both
+    calls in the 512 bucket at 128, 32 and 16 rows and at [128, 56] and
+    [128, 88] (the main job's full short forwards), tiled at [128, 128]:
+    these take that route. At [8, 512] (flash won a turn of the first call,
+    whose small forwards moved by up to 10 ms between turns) and [32, 128]
+    (no winner in the second call) the rule keeps K1, as at every shape not
+    measured."""
+    if (S, B) in _AUTO_MEASURED:
+        return _AUTO_MEASURED[(S, B)]
+    return "bias" if S == 512 and B >= 64 else "flash"

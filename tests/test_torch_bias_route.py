@@ -103,15 +103,18 @@ def test_attention_route_predicate():
         assert route(S, Bt, 64, "bias") == "bias"
     assert route(90, 4, 64, "bias") == "flash"
     assert route(96, 4, 12, "bias") == "flash"
-    # auto: the measured H100 rule (ops/fused_attention.py _auto_route):
-    # bias in the 512 bucket from 64 rows on, row at the batches where it
-    # was measured fastest, K1 elsewhere
-    for S in (56, 128, 384, 1024, 2048):
-        for Bt in (1, 16, 128):
+    # auto: the measured H100 rule (ops/fused_attention.py _auto_route): the
+    # route that beat the other three where it did (row in the 512 bucket at
+    # 16, 32 and 128 rows and at [128, 56] and [128, 88], tiled at
+    # [128, 128]), else bias in the 512 bucket from 64 rows on, K1 elsewhere
+    for S in (56, 88, 128, 384, 1024, 2048):
+        for Bt in (1, 16, 64):
             assert route(S, Bt, 64) == "flash", (S, Bt)
-    for Bt, want in ((1, "flash"), (8, "row"), (16, "flash"), (32, "row"), (64, "bias"), (128, "bias")):
+    for S, want in ((56, "row"), (72, "flash"), (88, "row"), (128, "tiled"), (384, "flash")):
+        assert route(S, 128, 64) == want, S
+    for Bt, want in ((1, "flash"), (8, "flash"), (16, "row"), (32, "row"), (64, "bias"), (96, "bias"), (128, "row")):
         assert route(512, Bt, 64) == want, Bt
-    assert route(512, 8, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
+    assert route(512, 16, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
     # row (K8) and tiled (K9 + K10) where their kernels take the shape, else
     # K1; the runtime config accepts both
     for forced, ok, not_ok in (("row", (56, 512), (1024, 90)), ("tiled", (128, 2048), (56, 88))):

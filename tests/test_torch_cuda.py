@@ -546,6 +546,105 @@ def test_tiled_kernel_checks_inputs(dev):
         FA.tiled_bias_attention(q, k, v, pk, pq, mask, 8.0, blk=16)
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core variants of K8 and K10 (bf16, csrc/*_tc.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 8, 56, 64, 65, 88, 200, 512])
+def test_row_tc_kernel_matches_plain(dev, S):
+    """K8's tensor-core variant over one to eight row tiles and ragged edges,
+    with ragged, single and leading-masked keys (_attn_inputs)."""
+    args = _attn_inputs(dev, 4, 3, S, torch.bfloat16, S + 29)
+    scale = math.sqrt(3 * 64)
+    FA.launches_row = FA.launches_row_tc = 0
+    got = FA.row_disentangled_attention(*args, scale)
+    assert (FA.launches_row, FA.launches_row_tc) == (1, 1)
+    want = FA.row_disentangled_attention_plain(*args, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+# (S, B, blk): part and whole groups of 16 batch rows at three lengths, then
+# the table blocks (16-row slices crossing a block at blk = 8) and S = 2048.
+_TILED_TC_CASES = [(S, B, blk) for B in (1, 9, 16, 17) for S, blk in ((32, 32), (96, 16), (512, 32))] + [
+    (32, 17, 8), (96, 17, 8), (512, 17, 8), (512, 16, 16), (512, 16, 64), (512, 9, 128),
+    (2048, 9, 32), (2048, 1, 128)]
+
+
+@pytest.mark.parametrize("S,B,blk", _TILED_TC_CASES)
+def test_tiled_tc_kernel_matches_plain(dev, S, B, blk):
+    """K10's tensor-core variant on K9's bf16 tables against its plain version
+    on the same tables."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, max(B, 4), 3 if S <= 512 else 1, S, torch.bfloat16, S + B + blk)
+    q, k, v, mask = q[:B], k[:B], v[:B], mask[:B].contiguous()
+    twc, twq = FA.windowed_pos_tables(pk, blk), FA.windowed_pos_tables(pq, blk)
+    scale = math.sqrt(3 * 64)
+    FA.launches_tiled = FA.launches_tiled_tc = 0
+    got = FA.tiled_attention(q, k, v, twc, twq, mask, scale)
+    assert (FA.launches_tiled, FA.launches_tiled_tc) == (1, 1)
+    want = FA.tiled_attention_plain(q, k, v, twc, twq, mask, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+def test_row_and_tiled_tc_kernels_rows_not_16_byte_aligned(dev):
+    """bf16 q/k/v rows 65 elements apart and one element off alignment, and
+    relative tables one element off: the tensor-core variants' element loads."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    S = 96
+    q, k, v = (torch.randn(4, 3, S, 65, generator=g, device=dev).to(torch.bfloat16)[..., 1:] for _ in range(3))
+    flat = torch.randn(2 * 3 * (2 * S - 1) * 64 + 1, generator=g, device=dev).to(torch.bfloat16)
+    pk, pq = flat[1:].view(2, 3, 2 * S - 1, 64)
+    mask = torch.ones(4, S, dtype=torch.int32, device=dev)
+    mask[1, 40:] = 0
+    FA.launches_row_tc = FA.launches_tiled_tc = 0
+    row = FA.row_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    tiled = FA.tiled_bias_attention(q, k, v, pk, pq, mask, 8.0, score_dtype=torch.bfloat16)
+    assert (FA.launches_row_tc, FA.launches_tiled_tc) == (1, 1)
+    torch.cuda.synchronize()
+    want_row = FA.row_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    want_tiled = FA.tiled_bias_attention_plain(q, k, v, pk, pq, mask, 8.0, score_dtype=torch.bfloat16)
+    assert (row.float() - want_row.float()).abs().max().item() <= 2e-2
+    assert (tiled.float() - want_tiled.float()).abs().max().item() <= 2e-2
+
+
+def test_row_and_tiled_tc_kernels_row_without_valid_key_is_the_mean_of_v(dev):
+    """bf16: K8 rounds p = 1/S to bf16 before p.v (as its plain version);
+    K10 sums exp(0) = 1 per key and divides by S after, so only the output's
+    rounding to bf16 remains."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 96, torch.bfloat16, 3)
+    mask[0] = 0
+    mean = v[0].float().mean(dim=1, keepdim=True)
+    row = FA.row_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    tiled = FA.tiled_bias_attention(q, k, v, pk, pq, mask, 8.0, score_dtype=torch.bfloat16)
+    want = FA.row_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (row.float() - want.float()).abs().max().item() <= 2e-2
+    assert (row[0].float() - mean).abs().max().item() <= 2e-2
+    assert (tiled[0].float() - mean).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype,table_dtype,tc", [
+    (torch.bfloat16, torch.bfloat16, 1), (torch.float32, torch.float32, 0),
+    (torch.bfloat16, torch.float32, 0), (torch.float32, torch.bfloat16, 0)])
+def test_row_and_tiled_variant_launch_counters(dev, dtype, table_dtype, tc):
+    """Every launch counts in launches_row / launches_tiled; only bf16 (with
+    bf16 tables for K10) counts in the tensor-core counters."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 64, dtype, 4)
+    twc = FA.windowed_pos_tables(pk.to(table_dtype), 32)
+    twq = FA.windowed_pos_tables(pq.to(table_dtype), 32)
+    FA.launches_row = FA.launches_row_tc = FA.launches_tiled = FA.launches_tiled_tc = 0
+    FA.tiled_attention(q, k, v, twc, twq, mask, 8.0)
+    assert (FA.launches_tiled, FA.launches_tiled_tc) == (1, tc)
+    if table_dtype == dtype:
+        FA.row_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+        assert (FA.launches_row, FA.launches_row_tc) == (1, tc)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("S", [64, 128, 512, 2048])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_row_and_tiled_routes_match_flash_route(dev, S, dtype, tol):

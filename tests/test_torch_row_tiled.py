@@ -47,6 +47,17 @@ def _inputs(S, seed):
     return q, k, v, pk, pq, mask
 
 
+@pytest.mark.parametrize("dtypes,want", [
+    ((torch.bfloat16,), FA.TENSOR_CORE), ((torch.bfloat16, torch.bfloat16), FA.TENSOR_CORE),
+    ((torch.float32,), FA.CUDA_CORE), ((torch.float32, torch.float32), FA.CUDA_CORE),
+    ((torch.bfloat16, torch.float32), FA.CUDA_CORE), ((torch.float32, torch.bfloat16), FA.CUDA_CORE),
+])
+def test_kernel_variant_predicate(dtypes, want):
+    """K8 and K10 launch their tensor-core variant for bf16 inputs (q's, and
+    K10's tables') and the CUDA-core one for fp32 and mixed types."""
+    assert FA.kernel_variant(*dtypes) == want
+
+
 def _valid_rows(out, ref, mask, tol):
     for b in range(B):
         rows = mask[b].astype(bool)

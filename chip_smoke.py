@@ -16,9 +16,11 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    bias route's absolute position table (exact), K7 its softmax over
    precomputed biases, K8 whole-row disentangled attention, K9 the tiled
    route's windowed position tables (exact), K10 its flash attention over
-   them. K8 and K10 run their bf16 tensor-core variants on bf16 inputs
-   (asserted by their counters) and their CUDA-core variants on fp32 and
-   mixed types; the CUDA-core variants are timed on the bf16 inputs too.
+   them. K3, K7, K8 and K10 run their bf16 tensor-core variants on bf16
+   inputs (K3 at K a multiple of 8 and N of 16; asserted by their counters)
+   and their CUDA-core variants on fp32, mixed types and the shapes K3's
+   tensor-core variant does not take; the CUDA-core variants are timed on the
+   bf16 inputs too.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
@@ -28,7 +30,8 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    just after), a torch.profiler breakdown of device time by kernel, peak device
    memory, and agreement of the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
-   launch counts of K4 (12 per forward) and K3, agreement with the CPU.
+   launch counts of K4 (12 per forward) and K3 (every launch on tensor
+   cores), agreement with the CPU.
 5. The two DeBERTa attention routes on the same model, "int8-dynamic":
    the whole forward at [128, 512] and [16, 512] with the route forced to
    flash (K1) and to bias (K6 + bias products + K7), classify_job texts/s on
@@ -36,7 +39,7 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    forward, K1 none on the bias run), peak memory, a profile of the bias
    run, and fp32 hidden states bias against flash (1e-4).
 6. The four attention routes on the same model, "int8-dynamic": the whole
-   forward at [B, 512] for B = 128, 32, 16, 8, [B, 128] for B = 128, 32 and
+   forward at [B, 512] for B = 128, 64, 32, 16, 8, [B, 128] for B = 128, 32 and
    the main job's [128, 56] and [128, 88] with the route forced to
    flash, bias, row (K8) and tiled (K9 + K10), two turns in opposite
    orders; classify_job on phase 3's job under row and under tiled (texts/s,
@@ -49,7 +52,8 @@ Phases, in order, each with its wall time; any failure exits non-zero:
 7. Serve path: GLiClassServer on 127.0.0.1 (the same model, attn_route
    "bias", warmed up), 16 client threads posting 256 requests over HTTP;
    each answered once, scores against classify_job, K6/K7 launches per
-   forward, /metrics latency percentiles and requests/s.
+   forward (K7 on tensor cores), /metrics latency percentiles and
+   requests/s.
 8. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
    28 layers, H=1536, 12 query / 2 kv heads, d=128, I=8960, vocab 151,936),
    random INT8 weights made layer by layer, "int8-dynamic" through
@@ -225,46 +229,76 @@ def check_ffn(gen: torch.Generator, dev, rng: np.random.Generator) -> dict:
                 shape=f"M={M} H={H} I={I}")
 
 
-def check_int8_matmul(gen: torch.Generator, dev, rng: np.random.Generator) -> dict:
+def check_int8_matmul(gen: torch.Generator, dev, rng: np.random.Generator, seed: int) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import int8_matmul as IM
     from gliclass.c_tpu_torch.ops.quant import quantize_weight
 
+    bf, f32 = torch.bfloat16, torch.float32
     M = 8192
     shapes = {"qkv": (768, 2304), "o": (768, 768), "up": (768, 3072), "down": (3072, 768)}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    # (label, M, K, N, dtype, bias): the encoder's four linears at M = 8192 in
+    # bf16 (tensor cores; timed, and drawn from ``rng`` as before the variant
+    # came, so that later phases draw the same weights and job), then, from
+    # generators of their own: the rel-embedding projection (M = 512, 64-wide
+    # tiles), a ragged M, the head's few rows, qwen-1.5B's N = 256 k/v
+    # projection; a shape the tensor-core variant does not take (N = 40) and
+    # fp32 (CUDA cores, 1e-4).
+    cases = [(name, M, K, N, bf, True) for name, (K, N) in shapes.items()] + [
+        ("rel-embedding qkv", 512, 768, 2304, bf, True), ("ragged M", 1000, 768, 768, bf, False),
+        ("head", 16, 768, 3072, bf, True), ("qwen k/v", 300, 1536, 256, bf, True), ("N=40", 70, 96, 40, bf, True),
+        ("qkv fp32", M, 768, 2304, f32, True), ("o fp32", 1000, 768, 768, f32, False)]
+    rng2 = np.random.default_rng([seed, 3])
+    gen2 = torch.Generator(device=dev).manual_seed(seed + 3)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
     worst = 0.0
-    for name, (K, N) in shapes.items():
-        w_q, scale = quantize_weight(rng.normal(0, 0.02, (K, N)).astype(np.float32))
+    for i, (name, M, K, N, dtype, with_bias) in enumerate(cases):
+        r, g = (rng, gen) if i < len(shapes) else (rng2, gen2)
+        w_q, scale = quantize_weight(r.normal(0, 0.02, (K, N)).astype(np.float32))
         w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
-        bias = torch.from_numpy(rng.normal(0, 0.02, N).astype(np.float32)).to(dev)
-        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.from_numpy(r.normal(0, 0.02, N).astype(np.float32)).to(dev) if with_bias else None
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        IM.launches = IM.launches_tc = 0
         out = IM.int8_matmul(x, w_q, scale, bias)
+        variant, tc = IM.kernel_variant(dtype, K, N), int(dtype == bf and K % 8 == 0 and N % 16 == 0)
+        if (IM.launches, IM.launches_tc) != (1, tc):
+            fail(f"K3 {name}: {IM.launches} launches, {IM.launches_tc} on tensor cores; expected 1 and {tc}")
         ref = IM.int8_matmul_plain(x, w_q, scale, bias)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"K3 {name}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
         mx = ref.float().abs().max().item()
-        # Same fp32 sum in another order, rounded once to bf16: 1 ulp.
-        tol = 2.0 ** (math.floor(math.log2(mx)) - 7)
-        log(f"K3 int8_matmul {name} M={M} K={K} N={N}: max|kernel-plain|={err:.3e} (tol {tol:.3e})")
+        # bf16: the same fp32 sum in another order, rounded once to bf16: 1 ulp.
+        tol = 2.0 ** (math.floor(math.log2(mx)) - 7) if dtype == bf else 1e-4
+        log(f"K3 int8_matmul [{variant}] {name} M={M} K={K} N={N} {str(dtype)[6:]}"
+            f"{'' if with_bias else ' no bias'}: max|kernel-plain|={err:.3e} (tol {tol:.3e})")
         if err > tol:
             fail(f"K3 {name}: max error {err} above {tol}")
+        if i >= len(shapes):
+            continue
         worst = max(worst, err)
         w_deq = (w_q.float() * scale).to(torch.bfloat16)  # yardstick only
         ms = time_ms(lambda: IM.int8_matmul(x, w_q, scale, bias))
+        # The CUDA-core variant on the same bf16 inputs, its C entry called
+        # directly (the wrapper sends these to tensor cores).
+        cc_out = torch.empty_like(out)
+        cc_args = (1, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr(), cc_out.data_ptr(), M, N, K,
+                   _build.stream_ptr(x))
+        cc = time_ms(lambda: _build.check(_build.lib().gct_int8_matmul(*cc_args), "gct_int8_matmul"))
         plain = time_ms(lambda: IM.int8_matmul_plain(x, w_q, scale, bias), iters=10)
         lib = time_ms(lambda: torch.matmul(x, w_deq))
         ops, nbytes = 2.0 * M * N * K, M * K * 2 + K * N + N * 8 + M * N * 2
         bms, by = bound_ms(ops, "bf16", nbytes)
-        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | torch.matmul(bf16 dequantized) "
-            f"{lib:.4f} ms | bound {bms:.4f} ms ({by})")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops), ("nbytes", nbytes)):
+        log(f"   time: kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | plain {plain:.4f} ms | "
+            f"torch.matmul(bf16 dequantized) {lib:.4f} ms | bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("cuda_core_ms", cc), ("ops", ops),
+                         ("nbytes", nbytes)):
             tot[key] += val
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
-                bound_ms=bms, bound_by=by, max_abs_err=worst,
-                shape=f"sum of qkv, o, up, down at M={M}")
+                bound_ms=bms, bound_by=by, max_abs_err=worst, variant=IM.TENSOR_CORE,
+                cuda_core_ms=tot["cuda_core_ms"], shape="sum of qkv, o, up, down at M=8192 (bf16)")
 
 
 def check_ffn_wonly(gen: torch.Generator, dev, rng: np.random.Generator) -> dict:
@@ -433,23 +467,33 @@ def check_bias_attention(gen: torch.Generator, dev) -> dict:
     # bf16: the fp32 score sums run in another order than the plain version's
     # matmul, and p is rounded to bf16 before p.v, so an element near a
     # rounding boundary can move one bf16 step (as for K1).
+    # The tensor-core variant's exp (ex2.approx) and one reciprocal per row
+    # stay within the same bf16 bound.
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
     worst = 0.0
     # (B, S, dtype, ragged, timed): the two 512-bucket batches of the route
-    # measurement, a ragged short bucket, and fp32.
+    # measurement, a ragged short bucket, and fp32; bf16 runs the tensor-core
+    # variant, fp32 the CUDA-core one. Last, the tensor-core variant's 16-row
+    # blocks at S = 1024 and 2048.
     cases = ((128, 512, torch.bfloat16, True, True), (16, 512, torch.bfloat16, True, True),
              (16, 88, torch.bfloat16, True, False), (16, 88, torch.float32, True, False),
-             (8, 512, torch.float32, True, False))
+             (8, 512, torch.float32, True, False), (4, 1024, torch.bfloat16, True, False),
+             (2, 2048, torch.bfloat16, True, False))
     for B, S, dtype, ragged, timed in cases:
         q, k, v, c2p, p2c, mask = bias_inputs(gen, dev, B, S, dtype, ragged)
+        FA.launches_bias = FA.launches_bias_tc = 0
         out = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, scale)
+        variant, tc = FA.kernel_variant(dtype, c2p.dtype), int(dtype == torch.bfloat16)
+        if (FA.launches_bias, FA.launches_bias_tc) != (1, tc):
+            fail(f"K7 B={B} S={S} {dtype}: {FA.launches_bias} launches, {FA.launches_bias_tc} on tensor cores; "
+                 f"expected 1 and {tc}")
         ref = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, scale)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"K7 B={B} S={S} {dtype}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"K7 bias_fused_attention B={B} h={h} S={S} d={d} {str(dtype)[6:]} "
+        log(f"K7 bias_fused_attention [{variant}] B={B} h={h} S={S} d={d} {str(dtype)[6:]} "
             f"{'ragged keys' if ragged else 'full'}: max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
         if err > tol[dtype]:
             fail(f"K7 B={B} S={S} {dtype}: max error {err} above {tol[dtype]}")
@@ -458,6 +502,7 @@ def check_bias_attention(gen: torch.Generator, dev) -> dict:
             continue
         worst = max(worst, err)
         ms = time_ms(lambda: FA.bias_fused_attention(q, k, v, c2p, p2c, mask, scale))
+        cc = cuda_core_bias_ms(q, k, v, c2p, p2c, mask, scale)
         plain = time_ms(lambda: FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, scale), iters=5)
         # Yardstick only: one PyTorch call for the same function, the biases
         # summed (and masked) outside the timed call.
@@ -471,15 +516,30 @@ def check_bias_attention(gen: torch.Generator, dev) -> dict:
         ops = 4.0 * B * h * S * S * d
         nbytes = 4 * B * h * S * d * 2 + 2 * B * h * S * S * c2p.element_size() + B * S * 4
         bms, by = bound_ms(ops, "bf16", nbytes)
-        log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | scaled_dot_product_attention "
-            f"{lib:.4f} ms | bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
+        log(f"   time: kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | plain {plain:.4f} ms | "
+            f"scaled_dot_product_attention {lib:.4f} ms | bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("cuda_core_ms", cc), ("ops", ops),
                          ("nbytes", nbytes)):
             tot[key] += val
         torch.cuda.empty_cache()
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms,
-                bound_by=by, max_abs_err=worst, shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
+                bound_by=by, max_abs_err=worst, variant=FA.TENSOR_CORE, cuda_core_ms=tot["cuda_core_ms"],
+                shape="sum of B=128 S=512, B=16 S=512 (h=12 d=64 bf16)")
+
+
+def cuda_core_bias_ms(q, k, v, c2p, p2c, mask, scale) -> float:
+    """Time of the CUDA-core K7 on the same bf16 inputs, its C entry called
+    directly (the wrapper sends bf16 to the tensor-core variant)."""
+    from gliclass.c_tpu_torch.ops import _build
+
+    B, h, S, d = q.shape
+    out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
+    args = (1, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], c2p.data_ptr(), *c2p.stride(),
+            p2c.data_ptr(), *p2c.stride(), mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale,
+            _build.stream_ptr(q))
+    fn = _build.lib().gct_bias_fused_attention
+    return time_ms(lambda: _build.check(fn(*args), "gct_bias_fused_attention"))
 
 
 def rel_inputs(gen: torch.Generator, dev, B: int, S: int, dtype):
@@ -826,7 +886,9 @@ def counters() -> dict:
             "row_disentangled_attention": (fused_attention, "launches_row"),
             "windowed_pos_tables": (fused_attention, "launches_win_table"),
             "tiled_attention": (fused_attention, "launches_tiled"),
-            # The tensor-core launches among those of K8 and K10.
+            # The tensor-core launches among those of K3, K7, K8 and K10.
+            "int8_matmul_tc": (int8_matmul, "launches_tc"),
+            "bias_fused_attention_tc": (fused_attention, "launches_bias_tc"),
             "row_disentangled_attention_tc": (fused_attention, "launches_row_tc"),
             "tiled_attention_tc": (fused_attention, "launches_tiled_tc")}
 
@@ -994,11 +1056,11 @@ def expect_launches(counts: dict, name: str, want: int, label: str) -> None:
         fail(f"{label}: {name} launched {counts[name]} times, expected {want}")
 
 
-# Launches per layer of each attention route's kernels, in bf16 (where K8 and
-# K10 run their tensor-core variants).
+# Launches per layer of each attention route's kernels, in bf16 (where K7, K8
+# and K10 run their tensor-core variants).
 ROUTE_KERNELS = {
     "flash": {"flash_disentangled_attention": 1},
-    "bias": {"abs_pos_table": 2, "bias_fused_attention": 1},
+    "bias": {"abs_pos_table": 2, "bias_fused_attention": 1, "bias_fused_attention_tc": 1},
     "row": {"row_disentangled_attention": 1, "row_disentangled_attention_tc": 1},
     "tiled": {"windowed_pos_tables": 2, "tiled_attention": 1, "tiled_attention_tc": 1},
 }
@@ -1122,9 +1184,10 @@ def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
 
 
 ROUTES = ("flash", "bias", "row", "tiled")
-# The 512 bucket at four batches, the 128 bucket at two, and the main job's
+# The 512 bucket at five batches, the 128 bucket at two, and the main job's
 # two full short-text forwards, [128, 56] and [128, 88].
-FOUR_ROUTE_SHAPES = ((128, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128), (128, 56), (128, 88))
+FOUR_ROUTE_SHAPES = ((128, 512), (64, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128), (128, 56),
+                     (128, 88))
 
 
 def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> dict:
@@ -1380,7 +1443,7 @@ def main() -> int:
         rec = {
             "flash_disentangled_attention": check_attention(gen, dev),
             "fused_ffn_w8a8": check_ffn(gen, dev, rng),
-            "int8_matmul": check_int8_matmul(gen, dev, rng),
+            "int8_matmul": check_int8_matmul(gen, dev, rng, args.seed),
             # Generators of their own from here on, so that the gliclass-base
             # phases draw the same weights and job as before K4 and K5 came.
             "fused_ffn_wonly": check_ffn_wonly(gen, dev, np.random.default_rng([args.seed, 4])),
@@ -1396,8 +1459,8 @@ def main() -> int:
             "tiled_attention": check_tiled_attention(torch.Generator(device=dev).manual_seed(args.seed + 10), dev),
         }
 
-    # Each kernel's launches come from the run of the path it serves; K8's
-    # and K10's tensor-core launches among them in launches_tc.
+    # Each kernel's launches come from the run of the path it serves; K3's,
+    # K7's, K8's and K10's tensor-core launches among them in launches_tc.
     launches, paths, launches_tc = {}, {}, {}
     with phase("phase 3: gliclass-base int8-dynamic"):
         bb = deberta_v3_config("base")
@@ -1427,10 +1490,14 @@ def main() -> int:
         n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_wonly", bb.num_hidden_layers * n_fwd, "weight-only path")
         expect_attention(counts, shapes, bb.num_hidden_layers, "weight-only path")
-        if counts["int8_matmul"] <= 0:
-            fail("weight-only path did not launch int8_matmul")
+        # Every K3 linear of the path (qkv, the rel-embedding projection and o
+        # of each layer, the head) takes the tensor-core variant in bf16.
+        if counts["int8_matmul"] <= 0 or counts["int8_matmul_tc"] != counts["int8_matmul"]:
+            fail(f"weight-only path launched int8_matmul {counts['int8_matmul']} times, "
+                 f"{counts['int8_matmul_tc']} on tensor cores; expected all of them, and some")
         for name in ("int8_matmul", "fused_ffn_wonly"):
             launches[name], paths[name] = counts[name], "gliclass-base int8"
+        launches_tc["int8_matmul"] = counts["int8_matmul_tc"]
 
     with phase("phase 5: flash route against bias route, gliclass-base int8-dynamic at [128, 512]"):
         route_measurement(cfg, qparams, tok, np.random.default_rng([args.seed, 7]), dev)
@@ -1456,6 +1523,7 @@ def main() -> int:
         counts, n_fwd = serve_path(cfg, qparams, tok, np.random.default_rng([args.seed, 8]), dev)
         for name in ("abs_pos_table", "bias_fused_attention"):
             launches[name], paths[name] = counts[name], "serve: gliclass-base int8-dynamic, attn_route=bias"
+        launches_tc["bias_fused_attention"] = counts["bias_fused_attention_tc"]
     del qparams
     torch.cuda.empty_cache()
 
@@ -1501,12 +1569,12 @@ def main() -> int:
         "flash_disentangled_attention": ("gliclass/c_tpu_torch/csrc/flash_disentangled_attention.cu",
                                          "gliclass/c_tpu/ops/fused_attention.py:275"),
         "fused_ffn_w8a8": ("gliclass/c_tpu_torch/csrc/fused_ffn_w8a8.cu", "gliclass/c_tpu/ops/fused_ffn.py:78"),
-        "int8_matmul": ("gliclass/c_tpu_torch/csrc/int8_matmul.cu", "gliclass/c_tpu/ops/int8_matmul.py:35"),
+        "int8_matmul": ("gliclass/c_tpu_torch/csrc/int8_matmul_tc.cu", "gliclass/c_tpu/ops/int8_matmul.py:35"),
         "fused_ffn_wonly": ("gliclass/c_tpu_torch/csrc/fused_ffn_wonly.cu", "gliclass/c_tpu/ops/fused_ffn.py:91"),
         "causal_flash_attention": ("gliclass/c_tpu_torch/csrc/causal_flash_attention.cu",
                                    "gliclass/c_tpu/ops/causal_attention.py:116"),
         "abs_pos_table": ("gliclass/c_tpu_torch/csrc/abs_pos_table.cu", "gliclass/c_tpu/ops/fused_attention.py:470"),
-        "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention.cu",
+        "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention_tc.cu",
                                  "gliclass/c_tpu/ops/fused_attention.py:547"),
         "row_disentangled_attention": ("gliclass/c_tpu_torch/csrc/row_disentangled_attention_tc.cu",
                                        "gliclass/c_tpu/ops/fused_attention.py:91"),
@@ -1525,7 +1593,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], "path": paths[name],
         })
-        if "variant" in r:  # K8 and K10: the tensor-core variant's record
+        if "variant" in r:  # K3, K7, K8 and K10: the tensor-core variant's record
             kernels[-1].update(variant=r["variant"], launches_tc=launches_tc[name],
                                cuda_core_ms=r["cuda_core_ms"])
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")

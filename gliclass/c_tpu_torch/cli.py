@@ -7,9 +7,19 @@
 Flags and output follow ``gliclass.c_tpu.cli``: ``run`` prints the
 reference report, ``Execution time: %f seconds`` (reference main.c:171) and a
 throughput line; ``selftest`` gates the bundle's golden logits and, with
-INT8, the micro-F1 delta. The attention route comes from
-GLICLASS_TPU_ATTN_ROUTE (auto | flash | bias), the variable the JAX package
-reads, so one setting switches both.
+INT8, the micro-F1 delta. The DeBERTa attention route comes from
+GLICLASS_TPU_ATTN_ROUTE, the variable the JAX package reads, so one setting
+switches both:
+
+    auto   the route measured fastest on the H100 at each forward's shape
+    flash  K1 (online softmax, c2p/p2c formed per tile) at every length
+    bias   K6 tables, bias products and K7 at 8-aligned lengths up to 2048
+    row    K8 (whole score rows on chip) at 8-aligned lengths up to 512
+    tiled  K9 windowed tables and K10 at lengths that are multiples of 32
+    table, xla  the materialized-score path (no attention kernel)
+
+bias, row and tiled run K1 at the lengths their kernels do not take; on the
+card a head width other than 64 takes the score path under every route.
 
 Not ported yet: ``convert`` and ``fetch`` (and so ``--model``), which wait
 for the converter (ROADMAP.md queue 1, item 5), and ``--dp/--tp/--sp``

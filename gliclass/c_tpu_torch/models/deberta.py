@@ -273,7 +273,7 @@ def deberta_encode(
 ) -> torch.Tensor:
     """Full encoder forward: [B, S] ids + mask -> [B, S, H] hidden states.
     ``attn_route`` (RuntimeConfig.attn_route) is resolved once for the
-    forward's (S, B) by ``ops.fused_attention.attention_route``."""
+    forward's (S, B) and device by ``ops.fused_attention.attention_route``."""
     if cfg.conv_kernel_size > 0:
         raise NotImplementedError("the DeBERTa conv stem (conv_kernel_size > 0) is not ported yet")
     B, S = input_ids.shape
@@ -299,7 +299,7 @@ def deberta_encode(
     else:
         rel_emb = torch.zeros((2 * att_span, cfg.hidden_size), dtype=compute_dtype, device=dev)
 
-    route = attention_route(S, B, cfg.head_dim, attn_route) if kernel_route(cfg) else "score"
+    route = attention_route(S, B, cfg.head_dim, attn_route, dev) if kernel_route(cfg) else "score"
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
     for i in range(n_layers):

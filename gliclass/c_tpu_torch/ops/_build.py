@@ -52,6 +52,10 @@ _SIGNATURES = {
     "gct_tiled_disentangled_attention_tc": [
         _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
     ],
+    "gct_int8_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_bias_fused_attention_tc": [
+        _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _I, _I, _I, _F, _P,
+    ],
 }
 
 _LIB = None

@@ -34,14 +34,15 @@ from ..config import check_attn_route
 from . import _build
 
 # Kernel launches since the last reset (the main path's proof): K1, K6, K7,
-# K8, K9, K10; launches_row and launches_tiled count both variants of K8 and
-# K10, launches_row_tc and launches_tiled_tc their tensor-core launches.
+# K8, K9, K10; launches_bias, launches_row and launches_tiled count both
+# variants of K7, K8 and K10, the *_tc counters their tensor-core launches.
 launches = 0
 launches_table = 0
 launches_bias = 0
 launches_row = 0
 launches_win_table = 0
 launches_tiled = 0
+launches_bias_tc = 0
 launches_row_tc = 0
 launches_tiled_tc = 0
 
@@ -55,10 +56,11 @@ CUDA_CORE = "cuda-core"
 
 
 def kernel_variant(*dtypes) -> str:
-    """The variant of K8 or K10 that takes inputs of these dtypes (q's, and
-    K10's tables'): the bf16 tensor-core kernels (``*_tc.cu``) when all are
-    bfloat16, else the CUDA-core kernels, which keep fp32's 1e-4 agreement
-    (TF32 tensor cores could not) and K10's mixed q/table types."""
+    """The variant of K7, K8 or K10 that takes inputs of these dtypes (q's,
+    and K7's biases' or K10's tables'): the bf16 tensor-core kernels
+    (``*_tc.cu``) when all are bfloat16, else the CUDA-core kernels, which
+    keep fp32's 1e-4 agreement (TF32 tensor cores could not) and the mixed
+    types."""
     return TENSOR_CORE if all(d == torch.bfloat16 for d in dtypes) else CUDA_CORE
 
 
@@ -208,10 +210,12 @@ def bias_fused_attention(q, k, v, c2p, p2c, attention_mask, scale):
     c2p, p2c: [B, h, S, S] unscaled biases of one type (float32 or bfloat16),
     any strides (the route passes views of its products, c2p contiguous in j
     and p2c in i); attention_mask: [B, S] int32. Returns [B, h, S, 64], laid
-    out as [B, S, h, 64] like K1's output."""
+    out as [B, S, h, 64] like K1's output. bf16 q/k/v with bf16 biases
+    launch the tensor-core kernel, other types the CUDA-core one
+    (:func:`kernel_variant`)."""
     if not q.is_cuda:
         return bias_fused_attention_plain(q, k, v, c2p, p2c, attention_mask, scale)
-    global launches_bias
+    global launches_bias, launches_bias_tc
     name = "bias_fused_attention"
     B, h, S, d = q.shape
     _check_qkv(name, q, k, v, attention_mask)
@@ -223,13 +227,17 @@ def bias_fused_attention(q, k, v, c2p, p2c, attention_mask, scale):
                              "both of one type")
     _check_device(name, q, k, v, c2p, p2c, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
-    rc = _build.lib().gct_bias_fused_attention(
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[c2p.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *q.stride()[:3], c2p.data_ptr(), *c2p.stride(), p2c.data_ptr(), *p2c.stride(),
-        attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], c2p.data_ptr(), *c2p.stride(),
+            p2c.data_ptr(), *p2c.stride(), attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale,
+            _build.stream_ptr(q))
+    tc = kernel_variant(q.dtype, c2p.dtype) == TENSOR_CORE
+    if tc:
+        rc = _build.lib().gct_bias_fused_attention_tc(*args)
+    else:
+        rc = _build.lib().gct_bias_fused_attention(_DTYPE_CODES[q.dtype], _DTYPE_CODES[c2p.dtype], *args)
     _build.check(rc, name)
     launches_bias += 1
+    launches_bias_tc += tc
     return out.permute(0, 2, 1, 3)
 
 
@@ -429,9 +437,10 @@ def tiled_bias_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, sc
     return tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale)
 
 
-def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
-    """The route of one forward at sequence length S and batch B: "flash",
-    "bias", "row", "tiled" or "score" (the materialized-score path).
+def attention_route(S: int, B: int, head_dim: int, route: str = "auto", device=None) -> str:
+    """The route of one forward at sequence length S and batch B on
+    ``device`` (a torch device or its name; None: the CPU): "flash", "bias",
+    "row", "tiled" or "score" (the materialized-score path).
 
     A forced route wins where its kernels take the shape, as the JAX
     package's GLICLASS_TPU_ATTN_ROUTE does (its predicates ``use_bias_route``,
@@ -440,8 +449,15 @@ def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
     at S a multiple of 32; each with head_dim a multiple of 8. At other S
     these three run "flash" (where the JAX package takes its score path:
     the same function). "table" and "xla" force the score path at any S.
-    "auto" takes the route :func:`_auto_route` names, on the same terms."""
+    "auto" takes the route :func:`_auto_route` names, on the same terms.
+
+    On a CUDA device every route is "score" unless head_dim is the kernels'
+    :data:`HEAD_DIM` (their wrappers refuse other widths), where the JAX
+    package runs the same function at any width. On the CPU the plain
+    versions take any width, so the routes above stand."""
     check_attn_route(route)
+    if device is not None and torch.device(device).type == "cuda" and head_dim != HEAD_DIM:
+        return "score"
     aligned = S % 8 == 0 and head_dim % 8 == 0
     if route in ("table", "xla"):
         return "score"
@@ -458,36 +474,35 @@ def attention_route(S: int, B: int, head_dim: int, route: str = "auto") -> str:
 
 # (S, B) where chip_smoke.py's four-route phase measured one route faster
 # than the other three in both turns of two calls (see _auto_route).
-_AUTO_MEASURED = {(512, 128): "row", (512, 32): "row", (512, 16): "row", (128, 128): "tiled",
-                  (56, 128): "row", (88, 128): "row"}
+_AUTO_MEASURED = {(512, 128): "row", (512, 64): "row", (512, 32): "row", (512, 16): "row",
+                  (128, 128): "tiled", (88, 128): "row"}
 
 
 def _auto_route(S: int, B: int) -> str:
     """The "auto" rule: the route measured fastest on the H100 at (S, B),
-    else bias in the 512 bucket from 64 rows on, else K1. Whole gliclass-base
+    else row in the 512 bucket from 64 rows on, else K1. Whole gliclass-base
     "int8-dynamic" forward, CUDA events (NVIDIA H100 80GB HBM3, 700.00 W).
 
-    Bias vs flash at S=512 (chip_smoke.py's route phase): B=16 75.2 vs
-    67.0 ms, B=32 129.9 vs 127.2, B=64 236.0 vs 241.3, B=128 446.1 vs 470.2.
-    The tables cost the same at any batch and K7 saves on K1 per row, so the
-    bias route wins from B=64 on, where no other route was measured.
-
-    The four routes with K8 and K10 on tensor cores (the four-route phase;
-    flash, bias, row, tiled ms, each the median of two turns in opposite
-    orders; first call, then second): [128, 512] 469.8, 445.9, 310.6, 312.8
-    / 470.2, 444.4, 309.9, 311.7; [32, 512] 127.4, 130.1, 86.6, 87.5 /
-    127.3, 129.7, 86.3, 87.3; [16, 512] 67.6, 75.8, 46.9, 49.0 / 67.2, 75.1,
-    46.5, 47.4; [8, 512] 48.0, 54.0, 50.0, 50.6 / 37.9, 48.1, 33.8, 34.7;
-    [128, 128] 89.8, 86.1, 80.4, 79.4 / 89.0, 85.1, 79.8, 78.7; [32, 128]
-    44.4, 46.8, 38.9, 44.5 / 33.3, 37.0, 33.4, 38.1; [128, 56] 46.0, 46.3,
-    41.0, 43.0 / 42.3, 42.5, 40.4, 42.7; [128, 88] 70.0, 65.2, 61.0, 69.3 /
-    69.6, 65.0, 60.8, 70.4. Row beat the other three in both turns of both
-    calls in the 512 bucket at 128, 32 and 16 rows and at [128, 56] and
-    [128, 88] (the main job's full short forwards), tiled at [128, 128]:
-    these take that route. At [8, 512] (flash won a turn of the first call,
-    whose small forwards moved by up to 10 ms between turns) and [32, 128]
-    (no winner in the second call) the rule keeps K1, as at every shape not
-    measured."""
+    The four routes with K3, K7, K8 and K10 on tensor cores (chip_smoke.py's
+    four-route phase; flash, bias, row, tiled ms, each the median of two
+    turns in opposite orders; first measurement call, then second):
+    [128, 512] 470.1, 320.5, 310.2, 312.8 / 468.6, 319.1, 308.9, 311.2;
+    [64, 512] 242.1, 172.4, 161.1, 162.7 / 241.1, 171.7, 160.5, 162.0;
+    [32, 512] 128.1, 98.7, 87.1, 88.3 / 127.0, 97.7, 86.2, 87.0; [16, 512]
+    67.8, 59.6, 47.5, 48.0 / 67.1, 58.5, 46.1, 46.9; [8, 512] 44.8, 40.9,
+    34.0, 35.5 / 40.0, 39.8, 30.7, 38.5; [128, 128] 90.0, 82.6, 82.3, 79.4
+    / 89.3, 82.0, 80.1, 78.8; [32, 128] 39.2, 46.5, 38.0, 39.6 / 31.4, 34.4,
+    31.7, 32.5; [128, 56] 48.9, 55.8, 51.6, 47.4 / 42.2, 41.4, 40.1, 42.4;
+    [128, 88] 69.3, 60.7, 60.5, 69.4 / 68.9, 60.5, 60.0, 69.0. Row beat the
+    other three in both turns of both calls in the 512 bucket at 128, 64,
+    32 and 16 rows and at [128, 88], tiled at [128, 128]: these take that
+    route, and the 512 bucket from 64 rows on takes row where not measured.
+    With K7 on tensor cores the bias forward at [128, 512] fell from 445 ms
+    (the CUDA-core K7) to 320, still behind row's 310: K7 now takes less
+    time a layer than K8, but the tables and bias products that only the
+    bias route needs cost more than the gap. [128, 56] (tiled in both turns
+    of the first call, row in the second), [8, 512] (row in the second call
+    only) and [32, 128] (no winner) keep K1, as every shape not measured."""
     if (S, B) in _AUTO_MEASURED:
         return _AUTO_MEASURED[(S, B)]
-    return "bias" if S == 512 and B >= 64 else "flash"
+    return "row" if S == 512 and B >= 64 else "flash"

@@ -1,10 +1,12 @@
 """INT8-weight matmul: y = (x @ w_q) * scale (+ b), kernel K3.
 
-The weight stays int8 in device memory and is upcast in registers; the
+The weight stays int8 in device memory and is upcast on chip; the
 per-output-channel scale commutes with the K reduction and is applied once in
 the epilogue, where the bias is fused. On a CUDA tensor :func:`int8_matmul`
-launches the hand-written kernel (``csrc/int8_matmul.cu``); on a CPU tensor it
-runs :func:`int8_matmul_plain`, the same arithmetic in PyTorch.
+launches one of two hand-written kernels (:func:`kernel_variant`): bf16 x on
+tensor cores (``csrc/int8_matmul_tc.cu``), every other case on CUDA cores
+(``csrc/int8_matmul.cu``). On a CPU tensor it runs
+:func:`int8_matmul_plain`, the same arithmetic in PyTorch.
 
 The JAX package's default (``_int8_matmul_xla``) dequantizes on the weight
 side and rounds the dequantized weight to the activation dtype before the
@@ -18,10 +20,24 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .fused_attention import CUDA_CORE, TENSOR_CORE
 
-launches = 0  # kernel launches since the last reset (the main path's proof)
+# Kernel launches since the last reset (the main path's proof): every launch
+# of K3, and the tensor-core ones among them.
+launches = 0
+launches_tc = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_variant(dtype: torch.dtype, K: int, N: int) -> str:
+    """The variant of K3 that takes x of this dtype against a [K, N] weight:
+    the bf16 tensor-core kernel when x is bfloat16, K is a multiple of 8 and
+    N a multiple of 16 (its 16-byte copies of x rows and weight rows), else
+    the CUDA-core kernel, which keeps fp32's 1e-4 agreement (TF32 tensor
+    cores would round x) and every other shape."""
+    tc = dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0
+    return TENSOR_CORE if tc else CUDA_CORE
 
 
 def int8_matmul_plain(
@@ -42,7 +58,7 @@ def int8_matmul(
     [K, N]; scale f32 [N]; bias f32 [N] or None. Output in x's dtype."""
     if not x.is_cuda:
         return int8_matmul_plain(x, w_q, scale, bias)
-    global launches
+    global launches, launches_tc
     *lead, K = x.shape
     N = w_q.shape[1]
     if x.dtype not in _DTYPE_CODES:
@@ -59,11 +75,17 @@ def int8_matmul(
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    rc = _build.lib().gct_int8_matmul(
-        _DTYPE_CODES[x.dtype], x2.data_ptr(), w_q.data_ptr(), scale.contiguous().data_ptr(),
-        None if bias is None else bias.contiguous().data_ptr(), out.data_ptr(),
-        M, N, K, _build.stream_ptr(x),
-    )
+    tc = kernel_variant(x.dtype, K, N) == TENSOR_CORE
+    if tc and (x2.data_ptr() % 16 or w_q.data_ptr() % 16):
+        # The tensor-core kernel copies 16-byte rows: realign a view that starts off a 16-byte boundary.
+        x2, w_q = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x2, w_q))
+    args = (x2.data_ptr(), w_q.data_ptr(), scale.contiguous().data_ptr(),
+            None if bias is None else bias.contiguous().data_ptr(), out.data_ptr(), M, N, K, _build.stream_ptr(x))
+    if tc:
+        rc = _build.lib().gct_int8_matmul_tc(*args)
+    else:
+        rc = _build.lib().gct_int8_matmul(_DTYPE_CODES[x.dtype], *args)
     _build.check(rc, "int8_matmul")
     launches += 1
+    launches_tc += tc
     return out.reshape(*lead, N)

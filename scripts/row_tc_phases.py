@@ -1,16 +1,18 @@
-"""Where the tensor-core K8 kernel spends its time, phase by phase.
+"""Where the tensor-core K8 (or K7) kernel spends its time, phase by phase.
 
-    python3 scripts/row_tc_phases.py [--seed N]
+    python3 scripts/row_tc_phases.py [--kernel row|bias] [--seed N]
 
-Builds copies of csrc/row_disentangled_attention_tc.cu cut short with a
-`return` before the softmax ("scores": staging, the three products and the
-score adds) and before p.v ("scores + softmax"), the whole kernel ("full"),
-and the whole kernel with the accurate softmax of the CUDA-core K8 ("accurate
-softmax": expf and a division per element in place of ex2.approx and one
-reciprocal per row), and times each at [B, 12, 512, 64] bf16 for B = 128
-and 16 (CUDA events, median of 20, two turns). The differences between cuts
-give each phase's share. Needs a CUDA card and nvcc; the copies are built
-under build/row_tc_phases/.
+Builds copies of csrc/row_disentangled_attention_tc.cu (``--kernel row``,
+the default) or csrc/bias_fused_attention_tc.cu (``--kernel bias``) cut
+short with a `return` before the softmax ("scores": staging, the products
+and the score adds) and before p.v ("scores + softmax"), the whole kernel
+("full"), and the whole kernel with the accurate softmax of the CUDA-core
+kernels ("accurate softmax": expf and a division per element in place of
+ex2.approx and one reciprocal per row), and times each at [B, 12, 512, 64]
+bf16 for B = 128 and 16 (CUDA events, median of 20, two turns; K7's biases
+in the route's layout). The differences between cuts give each phase's
+share. Needs a CUDA card and nvcc; the copies are built under
+build/row_tc_phases/.
 """
 
 from __future__ import annotations
@@ -30,25 +32,27 @@ import chip_smoke as cs  # noqa: E402
 from gliclass.c_tpu_torch.ops import _build  # noqa: E402
 
 CSRC = os.path.join(ROOT, "gliclass", "c_tpu_torch", "csrc")
+# kernel -> (source, C entry, the line that starts p.v)
+KERNELS = {"row": ("row_disentangled_attention_tc.cu", "gct_row_disentangled_attention_tc", "  // p.v: the warp's rows"),
+           "bias": ("bias_fused_attention_tc.cu", "gct_bias_fused_attention_tc", "  // p.v: rows m0")}
 SOFTMAX = "  // Exact softmax over each whole row"
-PV = "  // p.v: the warp's rows"
 FAST = ("const float inv = 1.f / warp_sum(sum);", "__expf(", "e[u] * inv")
 ACCURATE = ("sum = warp_sum(sum);", "expf(", "e[u] / sum")
 
 
-def variants(src: str) -> dict:
-    for marker in (SOFTMAX, PV, *FAST):
+def variants(src: str, pv: str) -> dict:
+    for marker in (SOFTMAX, pv, *FAST):
         if marker not in src:
             sys.exit(f"row_tc_phases: {marker!r} not found in the kernel source")
     accurate = src
     for old, new in zip(FAST, ACCURATE):
         accurate = accurate.replace(old, new)
     return {"scores": src.replace(SOFTMAX, "  return;\n" + SOFTMAX),
-            "scores + softmax": src.replace(PV, "  return;\n" + PV),
+            "scores + softmax": src.replace(pv, "  return;\n" + pv),
             "full": src, "accurate softmax": accurate}
 
 
-def build(srcs: dict) -> dict:
+def build(srcs: dict, entry: str) -> dict:
     out = os.path.join(ROOT, "build", "row_tc_phases")
     os.makedirs(out, exist_ok=True)
     procs = {}
@@ -63,8 +67,8 @@ def build(srcs: dict) -> dict:
         log, _ = p.communicate()
         if p.returncode != 0:
             sys.exit(f"row_tc_phases: {name} failed to build:\n{log}")
-        fn = ctypes.CDLL(so).gct_row_disentangled_attention_tc
-        fn.argtypes = _build._SIGNATURES["gct_row_disentangled_attention_tc"]
+        fn = getattr(ctypes.CDLL(so), entry)
+        fn.argtypes = _build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -72,22 +76,29 @@ def build(srcs: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="row")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("row_tc_phases: needs a CUDA card", flush=True)
         return 2
-    with open(os.path.join(CSRC, "row_disentangled_attention_tc.cu")) as f:
-        fns = build(variants(f.read()))
+    source, entry, pv = KERNELS[args.kernel]
+    with open(os.path.join(CSRC, source)) as f:
+        fns = build(variants(f.read(), pv), entry)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     print(cs.smi_line(), flush=True)
     scale = (3 * 64) ** 0.5
     for B in (128, 16):
-        q, k, v, pk, pq, mask = cs.rel_inputs(gen, dev, B, 512, torch.bfloat16)
         out = torch.empty((B, 512, 12, 64), dtype=torch.bfloat16, device=dev)
-        call = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pk.data_ptr(), pq.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), B, 12, 512, 1.0 / scale, _build.stream_ptr(q))
+        if args.kernel == "row":
+            q, k, v, pk, pq, mask = cs.rel_inputs(gen, dev, B, 512, torch.bfloat16)
+            tables = (pk.data_ptr(), pq.data_ptr())
+        else:
+            q, k, v, c2p, p2c, mask = cs.bias_inputs(gen, dev, B, 512, torch.bfloat16, True)
+            tables = (c2p.data_ptr(), *c2p.stride(), p2c.data_ptr(), *p2c.stride())
+        call = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *tables, mask.data_ptr(), out.data_ptr(),
+                B, 12, 512, 1.0 / scale, _build.stream_ptr(q))
         for turn in range(2):
             order = list(fns) if turn == 0 else list(fns)[::-1]
             times = {name: cs.time_ms(lambda fn=fns[name]: _build.check(fn(*call), name)) for name in order}

@@ -105,14 +105,15 @@ def test_attention_route_predicate():
     assert route(96, 4, 12, "bias") == "flash"
     # auto: the measured H100 rule (ops/fused_attention.py _auto_route): the
     # route that beat the other three where it did (row in the 512 bucket at
-    # 16, 32 and 128 rows and at [128, 56] and [128, 88], tiled at
-    # [128, 128]), else bias in the 512 bucket from 64 rows on, K1 elsewhere
+    # 16, 32, 64 and 128 rows and at [128, 88], tiled at [128, 128]), else
+    # row in the 512 bucket from 64 rows on, K1 elsewhere
     for S in (56, 88, 128, 384, 1024, 2048):
         for Bt in (1, 16, 64):
             assert route(S, Bt, 64) == "flash", (S, Bt)
-    for S, want in ((56, "row"), (72, "flash"), (88, "row"), (128, "tiled"), (384, "flash")):
+    for S, want in ((56, "flash"), (72, "flash"), (88, "row"), (128, "tiled"), (384, "flash")):
         assert route(S, 128, 64) == want, S
-    for Bt, want in ((1, "flash"), (8, "flash"), (16, "row"), (32, "row"), (64, "bias"), (96, "bias"), (128, "row")):
+    for Bt, want in ((1, "flash"), (8, "flash"), (16, "row"), (32, "row"), (64, "row"), (96, "row"), (128, "row"),
+                     (256, "row")):
         assert route(512, Bt, 64) == want, Bt
     assert route(512, 16, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
     # row (K8) and tiled (K9 + K10) where their kernels take the shape, else
@@ -127,6 +128,45 @@ def test_attention_route_predicate():
     assert route(512, 128, 64, "xla") == route(90, 4, 64, "table") == "score"
     with pytest.raises(ValueError):
         route(512, 128, 64, "bogus")
+
+
+ROUTES = ("auto", "flash", "bias", "row", "tiled", "table", "xla")
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_attention_route_at_other_head_widths(route):
+    """On a CUDA device a head width other than the kernels' 64 takes the
+    score path under every route (the kernel wrappers refuse it); on the CPU,
+    where the plain versions take any width, the route is what it is at 64
+    (save the kernels' 8-alignment), and at width 64 the device changes
+    nothing."""
+    for S, Bt in ((40, 3), (56, 128), (512, 16), (512, 64), (90, 4), (2048, 2)):
+        for d in (8, 12, 32, 128):
+            assert FA.attention_route(S, Bt, d, route, "cuda") == "score", (S, Bt, d)
+            assert FA.attention_route(S, Bt, d, route, torch.device("cuda", 0)) == "score", (S, Bt, d)
+            assert FA.attention_route(S, Bt, d, route, "cpu") == FA.attention_route(S, Bt, d, route), (S, Bt, d)
+        assert FA.attention_route(S, Bt, 8, route, "cpu") == FA.attention_route(S, Bt, 64, route), (S, Bt)
+        for dev in ("cuda", "cpu", None):
+            assert FA.attention_route(S, Bt, 64, route, dev) == FA.attention_route(S, Bt, 64, route), (S, Bt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_bias_fused_attention_cpu_runs_plain_and_counts_nothing(dtype, bias_dtype):
+    """On CPU tensors K7's wrapper runs its plain version in every type
+    combination and counts no launch of either variant; the variant its
+    types would take on the card is the tensor-core one for bf16 with bf16
+    biases only."""
+    q, k, v, _, _, mask = map(torch.from_numpy, _inputs(24, 5))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    rng = np.random.default_rng(6)
+    c2p, p2c = (torch.from_numpy(rng.normal(size=(B, H, 24, 24)).astype(np.float32)).to(bias_dtype) for _ in range(2))
+    before = FA.launches_bias, FA.launches_bias_tc
+    got = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 5.0)
+    assert (FA.launches_bias, FA.launches_bias_tc) == before
+    assert torch.equal(got, FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 5.0))
+    tc = dtype == bias_dtype == torch.bfloat16
+    assert FA.kernel_variant(q.dtype, c2p.dtype) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
 
 
 def _tiny(S):

@@ -710,3 +710,202 @@ def test_engine_row_and_tiled_routes_on_card(dev, route):
     assert card.warmup() == 8
     counts = (FA.launches, FA.launches_row, FA.launches_win_table, FA.launches_tiled)
     assert counts == ((0, 16, 0, 0) if route == "row" else (8, 0, 16, 8))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variants of K3 and K7 (bf16, csrc/int8_matmul_tc.cu and
+# csrc/bias_fused_attention_tc.cu), and a head width the kernels do not take
+# ---------------------------------------------------------------------------
+# (M, K, N): the encoder's qkv, o, up and down at M = 8192, a ragged M, the
+# rel-embedding projection (M = 512, 64-wide tiles), the head's few rows, and
+# qwen-1.5B's N = 256 k/v projections.
+_INT8_TC_CASES = [(8192, 768, 2304), (8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768), (1000, 768, 2304),
+                  (512, 768, 2304), (16, 768, 3072), (5, 3072, 768), (1, 32, 96), (300, 1536, 256)]
+
+
+@pytest.mark.parametrize("M,K,N", _INT8_TC_CASES)
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_matmul_tc_kernel_matches_plain(dev, M, K, N, with_bias):
+    """K3's tensor-core variant: the same fp32 sums in another order, rounded
+    once to bf16, so within one bf16 ulp of the largest output."""
+    rng = np.random.default_rng(M + K + N + with_bias)
+    w_q, scale = quantize_weight(rng.normal(0, 0.02, (K, N)).astype(np.float32))
+    w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
+    bias = torch.from_numpy(rng.normal(0, 0.02, N).astype(np.float32)).to(dev) if with_bias else None
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    IM.launches = IM.launches_tc = 0
+    got = IM.int8_matmul(x, w_q, scale, bias).float()
+    assert (IM.launches, IM.launches_tc) == (1, 1)
+    want = IM.int8_matmul_plain(x, w_q, scale, bias).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_int8_matmul_tc_kernel_realigns_a_view(dev):
+    """x rows starting 2 bytes off a 16-byte boundary (a view one element into
+    its storage): the wrapper copies it, the tensor-core variant runs."""
+    rng = np.random.default_rng(21)
+    w_q, scale = quantize_weight(rng.normal(0, 0.02, (64, 128)).astype(np.float32))
+    w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
+    flat = torch.from_numpy(rng.normal(size=40 * 64 + 1).astype(np.float32)).to(dev, torch.bfloat16)
+    x = flat[1:].view(40, 64)
+    IM.launches_tc = 0
+    got = IM.int8_matmul(x, w_q, scale)
+    assert IM.launches_tc == 1
+    want = IM.int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (
+        math.floor(math.log2(want.float().abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("dtype,K,N,tc", [
+    (torch.bfloat16, 768, 2304, 1), (torch.bfloat16, 96, 40, 0), (torch.bfloat16, 100, 64, 0),
+    (torch.float32, 768, 768, 0), (torch.float32, 1536, 256, 0)])
+def test_int8_matmul_variant_launch_counters(dev, dtype, K, N, tc):
+    """Every launch counts in launches, only the tensor-core ones in
+    launches_tc; fp32 (the parity mode) keeps the CUDA-core kernel at 1e-4
+    (outputs up to ~6 from sums over up to 1536 terms)."""
+    rng = np.random.default_rng(K + N)
+    w_q, scale = quantize_weight(rng.normal(0, 0.05, (K, N)).astype(np.float32))
+    w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
+    x = torch.from_numpy(rng.normal(size=(70, K)).astype(np.float32)).to(dev, dtype)
+    IM.launches = IM.launches_tc = 0
+    got = IM.int8_matmul(x, w_q, scale).float()
+    assert (IM.launches, IM.launches_tc) == (1, tc)
+    assert IM.kernel_variant(dtype, K, N) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
+    want = IM.int8_matmul_plain(x, w_q, scale).float()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("S", [1, 56, 88, 130, 512, 600, 1024, 2048])
+@pytest.mark.parametrize("layout", ["route", "dense"])
+def test_bias_tc_kernel_matches_plain(dev, S, layout):
+    """K7's tensor-core variant (32 rows a block up to S = 512, 16 above) in
+    both bias layouts, with ragged, single and leading-masked keys
+    (_attn_inputs); S = 1 and 130 take its element loads."""
+    args = _bias_inputs(dev, S, torch.bfloat16, layout, S + 31)
+    scale = math.sqrt(3 * 64)
+    FA.launches_bias = FA.launches_bias_tc = 0
+    got = FA.bias_fused_attention(*args, scale)
+    assert (FA.launches_bias, FA.launches_bias_tc) == (1, 1)
+    want = FA.bias_fused_attention_plain(*args, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+def test_bias_tc_kernel_other_strides(dev):
+    """c2p contiguous in i and p2c in j (the route's layouts swapped), and
+    q/k/v rows one element off alignment: every staging path of K7's
+    tensor-core variant."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    S = 96
+    q, k, v = (torch.randn(4, 3, S, 65, generator=g, device=dev).to(torch.bfloat16)[..., 1:] for _ in range(3))
+    c2p = (4 * torch.randn(3, S, 4, S, generator=g, device=dev)).to(torch.bfloat16).permute(2, 0, 3, 1)
+    p2c = (4 * torch.randn(3, S, 4, S, generator=g, device=dev)).to(torch.bfloat16).permute(2, 0, 1, 3)
+    mask = torch.ones(4, S, dtype=torch.int32, device=dev)
+    mask[1, 40:] = 0
+    FA.launches_bias_tc = 0
+    got = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 8.0)
+    assert FA.launches_bias_tc == 1
+    want = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("S", [100, 1024])
+def test_bias_tc_kernel_row_without_valid_key_is_the_mean_of_v(dev, S):
+    """bf16: all scores at -1e30, p = 1/S rounded to bf16 before p.v, as the
+    plain version."""
+    q, k, v, c2p, p2c, mask = _bias_inputs(dev, S, torch.bfloat16, "route", 1)
+    mask[0] = 0
+    got = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 8.0)
+    want = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert (got[0].float() - v[0].float().mean(dim=1, keepdim=True)).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,bias_dtype,tc", [
+    (torch.bfloat16, torch.bfloat16, 1), (torch.float32, torch.float32, 0),
+    (torch.bfloat16, torch.float32, 0), (torch.float32, torch.bfloat16, 0)])
+def test_bias_variant_launch_counters(dev, dtype, bias_dtype, tc):
+    """Every K7 launch counts in launches_bias, only bf16 with bf16 biases in
+    launches_bias_tc."""
+    q, k, v, c2p, p2c, mask = _bias_inputs(dev, 64, dtype, "route", 2)
+    c2p, p2c = c2p.to(bias_dtype), p2c.to(bias_dtype)
+    FA.launches_bias = FA.launches_bias_tc = 0
+    got = FA.bias_fused_attention(q, k, v, c2p, p2c, mask, 8.0)
+    assert (FA.launches_bias, FA.launches_bias_tc) == (1, tc)
+    want = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("compute_dtype,quant_mode", [("float32", "int8"), ("bfloat16", "int8"),
+                                                      ("bfloat16", "int8-dynamic")])
+def test_classify_job_head_width_8_on_card(dev, compute_dtype, quant_mode):
+    """A DeBERTa of head width 8 (hidden 32, 4 heads) through classify_job on
+    the card: every route takes the score path there (the kernels take width
+    64 only), the linears run K3 or the w8a8 path and the FFN K2 or K4, and
+    the result agrees with the same pipeline on the CPU, which runs the
+    kernels' plain versions on the flash route."""
+    import chip_smoke
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    bb = BackboneConfig(model_type="deberta-v2", vocab_size=600, hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=64, max_position_embeddings=64,
+                        position_buckets=16, norm_rel_ebd="layer_norm", share_att_key=True,
+                        position_biased_input=False)
+    tok = PromptTokenizer(chip_smoke.WordTokenizer(bb.vocab_size))
+    cfg = GLiClassConfig(hidden_size=32, class_token_index=tok.label_token_id,
+                         text_token_index=tok.sep_token_id, prompt_first=True, backbone=bb)
+    rng = np.random.default_rng(4)
+    params = quantize_tree(chip_smoke.make_params(rng, bb, 32))
+    labels = [["politics", "sports", "science", "health"]]
+    job_dict = chip_smoke.make_job(rng, 6, 0) | {"labels": labels}
+    job = parse_job(job_dict)
+    # Padded to the 64 bucket as the engine pads: 6 x 64 rows (torch._int_mm
+    # on the card refuses a row count such as 6 x 57).
+    batch = tok.encode_batch(pack_prompts(job_dict["texts"], labels, True, cfg.prompt_first), max_length=64,
+                             pad_to=64)
+    valid = torch.from_numpy(batch.attention_mask).bool()
+    rt = RuntimeConfig(batch_size=4, max_length=64, compute_dtype=compute_dtype, quant_mode=quant_mode,
+                       seq_buckets=(32, 64), label_buckets=(4,))
+    for route in ("auto", "flash", "bias", "row", "tiled"):
+        assert FA.attention_route(64, 4, 8, route, dev) == "score"
+        FA.launches = FA.launches_bias = FA.launches_row = FA.launches_tiled = 0
+        IM.launches = FF.launches = FF.launches_wonly = 0
+        card = ZeroShotClassificationPipeline(InferenceEngine(cfg, params, dataclasses.replace(rt, attn_route=route)),
+                                              tok, rt).classify_job(job)
+        torch.cuda.synchronize()
+        assert (FA.launches, FA.launches_bias, FA.launches_row, FA.launches_tiled) == (0, 0, 0, 0)
+        if quant_mode == "int8":
+            assert IM.launches > 0
+        if compute_dtype == "bfloat16":
+            assert (FF.launches if quant_mode == "int8-dynamic" else FF.launches_wonly) > 0
+        # The CPU on the score path (the card's) and on the route itself (the
+        # kernels' plain versions: the same function, fp32 only, since bf16
+        # rounds the two paths' scores at other places). The random head
+        # leaves the probabilities near 0.5, so the backbone's hidden states
+        # (relative L2 over valid tokens) are held too.
+        h_card = chip_smoke.hidden_states(InferenceEngine(cfg, params, dataclasses.replace(rt, attn_route=route)),
+                                          batch)
+        for cpu_route in ("xla", route) if compute_dtype == "float32" else ("xla",):
+            cpu_rt = dataclasses.replace(rt, attn_route=cpu_route)
+            cpu = ZeroShotClassificationPipeline(InferenceEngine(cfg, params, cpu_rt, device="cpu"), tok,
+                                                 rt).classify_job(job)
+            assert card.failures == [] and cpu.failures == []
+            assert card.probs.shape == (6, 4) and np.isfinite(card.probs).all()
+            np.testing.assert_allclose(card.probs, cpu.probs, atol=1e-5 if compute_dtype == "float32" else 5e-2)
+            h_cpu = chip_smoke.hidden_states(InferenceEngine(cfg, params, cpu_rt, device="cpu"), batch)
+            rel = ((h_card[valid] - h_cpu[valid]).norm() / h_cpu[valid].norm()).item()
+            assert rel <= (1e-5 if compute_dtype == "float32" else 5e-2), (route, cpu_route, rel)

@@ -18,6 +18,7 @@ from gliclass.c_tpu.ops import quant as jq
 from gliclass.c_tpu.ops.fused_ffn import _fused_ffn_pallas
 from gliclass.c_tpu.ops.int8_matmul import int8_matmul as j_int8_matmul
 from gliclass.c_tpu_torch.models import deberta as tdeb
+from gliclass.c_tpu_torch.ops import fused_attention as tfa
 from gliclass.c_tpu_torch.ops import fused_ffn as tffn
 from gliclass.c_tpu_torch.ops import int8_matmul as tim
 from gliclass.c_tpu_torch.ops import layers as tl
@@ -229,11 +230,42 @@ def test_int8_matmul_cpu_runs_plain_and_counts_nothing():
     w_q = torch.from_numpy(rng.integers(-127, 128, (16, 8)).astype(np.int8))
     scale = torch.rand(8)
     bias = torch.rand(8)
-    before = tim.launches
+    before = tim.launches, tim.launches_tc
     got = tim.int8_matmul(x, w_q, scale, bias)
-    assert tim.launches == before
+    assert (tim.launches, tim.launches_tc) == before
     want = (x.double() @ w_q.double() * scale.double() + bias.double()).float()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_matmul_cpu_bf16_runs_plain_and_counts_nothing(with_bias):
+    """bf16 x at a shape the tensor-core variant takes: on a CPU tensor the
+    wrapper still runs the plain version and counts no launch of either."""
+    rng = np.random.default_rng(12)
+    x = _t(rng.normal(size=(3, 7, 32)), "bfloat16")
+    w_q = torch.from_numpy(rng.integers(-127, 128, (32, 48)).astype(np.int8))
+    scale = torch.rand(48)
+    bias = torch.rand(48) if with_bias else None
+    assert tim.kernel_variant(x.dtype, 32, 48) == tfa.TENSOR_CORE
+    before = tim.launches, tim.launches_tc
+    got = tim.int8_matmul(x, w_q, scale, bias)
+    assert (tim.launches, tim.launches_tc) == before
+    assert got.shape == (3, 7, 48) and got.dtype == torch.bfloat16
+    assert torch.equal(got, tim.int8_matmul_plain(x, w_q, scale, bias))
+
+
+@pytest.mark.parametrize("dtype,K,N,want", [
+    (torch.bfloat16, 768, 2304, "tc"), (torch.bfloat16, 768, 768, "tc"), (torch.bfloat16, 3072, 768, "tc"),
+    (torch.bfloat16, 1536, 256, "tc"), (torch.bfloat16, 32, 96, "tc"), (torch.bfloat16, 8, 16, "tc"),
+    (torch.bfloat16, 64, 8, "cc"), (torch.bfloat16, 96, 40, "cc"), (torch.bfloat16, 100, 768, "cc"),
+    (torch.bfloat16, 12, 64, "cc"), (torch.float32, 768, 2304, "cc"), (torch.float32, 64, 8, "cc"),
+])
+def test_int8_matmul_kernel_variant_predicate(dtype, K, N, want):
+    """K3's tensor-core variant takes bf16 x with K a multiple of 8 and N a
+    multiple of 16 (the encoder's linears, qwen's N=256 k/v projections);
+    fp32 and every other shape keep the CUDA-core kernel."""
+    variant = {"tc": tfa.TENSOR_CORE, "cc": tfa.CUDA_CORE}[want]
+    assert tim.kernel_variant(dtype, K, N) == variant
 
 
 def test_fused_ffn_plain_matches_pallas_interpret():

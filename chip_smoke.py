@@ -16,11 +16,14 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    bias route's absolute position table (exact), K7 its softmax over
    precomputed biases, K8 whole-row disentangled attention, K9 the tiled
    route's windowed position tables (exact), K10 its flash attention over
-   them. K3, K7, K8 and K10 run their bf16 tensor-core variants on bf16
-   inputs (K3 at K a multiple of 8 and N of 16; asserted by their counters)
-   and their CUDA-core variants on fp32, mixed types and the shapes K3's
-   tensor-core variant does not take; the CUDA-core variants are timed on the
-   bf16 inputs too.
+   them. K3, K4, K5, K7, K8 and K10 run their bf16 tensor-core variants on
+   bf16 inputs (K3 at K a multiple of 8 and N of 16, K4 at H and I multiples
+   of 16, K5 at d a multiple of 16; asserted by their counters) and their
+   CUDA-core variants on fp32, mixed types and the other shapes; the
+   CUDA-core variants are timed on the bf16 inputs too. Every kernel's time
+   is taken through its wrapper; K4 and K5 also give their tensor-core C
+   entry's time with the arguments built once and the profiler's device
+   time (K5 SDPA's too).
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
@@ -30,8 +33,9 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    just after), a torch.profiler breakdown of device time by kernel, peak device
    memory, and agreement of the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
-   launch counts of K4 (12 per forward) and K3 (every launch on tensor
-   cores), agreement with the CPU.
+   launch counts of K4 (12 per forward) and K3 (every launch of both on
+   tensor cores), a torch.profiler breakdown of device time by kernel,
+   agreement with the CPU.
 5. The two DeBERTa attention routes on the same model, "int8-dynamic":
    the whole forward at [128, 512] and [16, 512] with the route forced to
    flash (K1) and to bias (K6 + bias products + K7), classify_job texts/s on
@@ -58,10 +62,10 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    28 layers, H=1536, 12 query / 2 kv heads, d=128, I=8960, vocab 151,936),
    random INT8 weights made layer by layer, "int8-dynamic" through
    classify_job; texts/s, stages, profile, peak memory; K5 launched 28 times
-   per forward; the first 4 texts against the CPU.
+   per forward, all on tensor cores; the first 4 texts against the CPU.
 9. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
-   bias, vocab 32,000), "int8-dynamic", a small job; K5 launches and
-   agreement with the CPU.
+   bias, vocab 32,000), "int8-dynamic", a small job; K5 launches (all on
+   tensor cores) and agreement with the CPU.
 10. One JSON line of kernel records (all ten kernels), the card line, and
     the final status line.
 
@@ -132,6 +136,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by name
+    (torch.profiler over ``iters`` calls, after one warm call); empty where
+    the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.split("(anonymous namespace)::")[-1][:60]  # K4′'s two launches differ in the template
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def device_ms(fn) -> float | None:
+    """Summed device time per call of the kernels ``fn`` launches; None
+    (not measured) where the profiler recorded none."""
+    by_kernel = device_ms_by_kernel(fn)
+    return sum(by_kernel.values()) if by_kernel else None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(ops: float, op_type: str, nbytes: float) -> tuple[float, str]:
@@ -302,48 +338,85 @@ def check_int8_matmul(gen: torch.Generator, dev, rng: np.random.Generator, seed:
 
 
 def check_ffn_wonly(gen: torch.Generator, dev, rng: np.random.Generator) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import fused_ffn as FF
     from gliclass.c_tpu_torch.ops.quant import quantize_weight
 
-    M, H, I = 8192, 768, 3072
-    wu, su = quantize_weight(rng.normal(0, 0.02, (H, I)).astype(np.float32))
-    wd, sd = quantize_weight(rng.normal(0, 0.02, (I, H)).astype(np.float32))
-    t = lambda a: torch.from_numpy(a).to(dev)
-    bu = t(rng.normal(0, 0.02, I).astype(np.float32))
-    bd = t(rng.normal(0, 0.02, H).astype(np.float32))
-    x = torch.randn(M, H, generator=gen, device=dev).to(torch.bfloat16)
-    args = (x, t(wu), t(su), bu, t(wd), t(sd), bd, "gelu")
-    out = FF.fused_ffn_wonly(*args)
-    ref = FF.fused_ffn_wonly_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out.float()).all():
-        fail("K4: non-finite output")
-    err = (out.float() - ref.float()).abs().max().item()
-    scale_ref = ref.float().abs().max().item()
-    # bf16 output: a few ulps at the output's magnitude; the fp32 sums differ
-    # in order, which can move one bf16 step of the rounded intermediate.
-    tol = 4 * 2.0 ** (math.floor(math.log2(scale_ref)) - 7)
-    log(f"K4 fused_ffn_wonly M={M} H={H} I={I}: max|kernel-plain|={err:.3e} "
-        f"(tol {tol:.3e}, max|y| {scale_ref:.3f})")
-    if err > tol:
-        fail(f"K4: max error {err} above {tol}")
-    ms = time_ms(lambda: FF.fused_ffn_wonly(*args))
-    plain = time_ms(lambda: FF.fused_ffn_wonly_plain(*args), iters=10)
-    ops = 4.0 * M * H * I
-    nbytes = M * H * 2 * 2 + 2 * H * I + (I + H) * 4 * 2
-    bms, by = bound_ms(ops, "bf16", nbytes)
-    log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {bms:.4f} ms ({by}) | "
-        "library: none (no one PyTorch call computes up, gelu and down)")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                shape=f"M={M} H={H} I={I}")
+    # (M, H, I, timed): gliclass-base's FFN at M = 8192 (tensor cores; drawn
+    # from ``rng`` and ``gen`` first, as before the variant came), then a
+    # shape the tensor-core variant does not take (CUDA cores).
+    rec = None
+    for M, H, I, timed in ((8192, 768, 3072, True), (300, 100, 196, False)):
+        wu, su = quantize_weight(rng.normal(0, 0.02, (H, I)).astype(np.float32))
+        wd, sd = quantize_weight(rng.normal(0, 0.02, (I, H)).astype(np.float32))
+        t = lambda a: torch.from_numpy(a).to(dev)
+        bu = t(rng.normal(0, 0.02, I).astype(np.float32))
+        bd = t(rng.normal(0, 0.02, H).astype(np.float32))
+        x = torch.randn(M, H, generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, t(wu), t(su), bu, t(wd), t(sd), bd, "gelu")
+        FF.launches_wonly = FF.launches_wonly_tc = 0
+        out = FF.fused_ffn_wonly(*args)
+        variant, tc = FF.kernel_variant(H, I), int(H % 16 == 0 and I % 16 == 0)
+        if (FF.launches_wonly, FF.launches_wonly_tc) != (1, tc):
+            fail(f"K4 M={M} H={H} I={I}: {FF.launches_wonly} calls, {FF.launches_wonly_tc} on tensor cores; "
+                 f"expected 1 and {tc}")
+        ref = FF.fused_ffn_wonly_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail("K4: non-finite output")
+        # bf16 output: a few ulps at the output's magnitude; the fp32 sums
+        # differ in order, which can move one bf16 step of the rounded
+        # intermediate (either variant).
+        tol = 4 * 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+        errs = {variant: (out.float() - ref.float()).abs().max().item()}
+        # The CUDA-core variant on the same bf16 inputs, its C entry called
+        # directly (the wrapper sends H, I multiples of 16 to tensor cores).
+        cc_out = torch.empty_like(x)
+        cc_args = (*(a.data_ptr() for a in args[:7]), cc_out.data_ptr(), M, H, I, _build.stream_ptr(x))
+        cc_fn = lambda: _build.check(_build.lib().gct_fused_ffn_wonly(*cc_args), "gct_fused_ffn_wonly")
+        if tc:
+            cc_fn()
+            torch.cuda.synchronize()
+            errs[FF.CUDA_CORE] = (cc_out.float() - ref.float()).abs().max().item()
+        log(f"K4 fused_ffn_wonly [{variant}] M={M} H={H} I={I}: max|kernel-plain|=" + ", ".join(
+            f"{e:.3e} ({v})" for v, e in errs.items()) + f" (tol {tol:.3e}, 4 bf16 ulps of max|y|)")
+        for v, e in errs.items():
+            if e > tol:
+                fail(f"K4 {v} M={M} H={H} I={I}: max error {e} above {tol}")
+        if not timed:
+            continue
+        # Through the wrapper, as every kernel of the line; beside it the
+        # tensor-core variant's C entry with its arguments built once (the
+        # wrapper's host work left out) and its device time.
+        h_buf, tc_out = torch.empty((M, I), dtype=x.dtype, device=dev), torch.empty_like(x)
+        tc_args = (*cc_args[:7], h_buf.data_ptr(), tc_out.data_ptr(), M, H, I, _build.stream_ptr(x))
+        tc_fn = lambda: _build.check(_build.lib().gct_fused_ffn_wonly_tc(*tc_args), "gct_fused_ffn_wonly_tc")
+        ms = time_ms(lambda: FF.fused_ffn_wonly(*args))
+        entry, dms = time_ms(tc_fn), device_ms(tc_fn)
+        cc = time_ms(cc_fn)
+        plain = time_ms(lambda: FF.fused_ffn_wonly_plain(*args), iters=10)
+        ops = 4.0 * M * H * I
+        nbytes = M * H * 2 * 2 + 2 * H * I + (I + H) * 4 * 2
+        bms, by = bound_ms(ops, "bf16", nbytes)
+        log(f"   time: kernel {ms:.4f} ms (C entry {entry:.4f} ms, device {fmt_ms(dms)}) | CUDA-core variant "
+            f"{cc:.4f} ms (C entry) | plain {plain:.4f} ms | bound {bms:.4f} ms ({by}) | "
+            "library: none (no one PyTorch call computes up, gelu and down)")
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=errs[variant],
+                   variant=variant, cuda_core_ms=cc, entry_ms=entry, device_ms=dms, shape=f"M={M} H={H} I={I}")
+    return rec
 
 
 def check_causal(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import causal_attention as CA
 
     d = 128
+    # bf16 runs the tensor-core variant: fp32 sums in another order, p rounded
+    # to bf16 at the running max, exp by ex2.approx and one reciprocal per
+    # row; fp32 the CUDA-core one.
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, entry_ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, library_device_ms=0.0,
+               cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
     worst = 0.0
     lib_ok = True
     # (label, B, nkv, g, S, timed): the qwen main path's two shapes (full
@@ -362,20 +435,39 @@ def check_causal(gen: torch.Generator, dev) -> dict:
             lengths[0], lengths[1] = S, 1  # a full row and a padded batch row
             mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
             scale = 1.0 / math.sqrt(d)
+            CA.launches = CA.launches_tc = 0
             out = CA.causal_flash_attention(qg, k, v, mask, scale)
+            variant, tc = CA.kernel_variant(dtype, d), int(dtype == torch.bfloat16)
+            if (CA.launches, CA.launches_tc) != (1, tc):
+                fail(f"K5 {label} S={S} {dtype}: {CA.launches} launches, {CA.launches_tc} on tensor cores; "
+                     f"expected 1 and {tc}")
             ref = CA.causal_flash_attention_plain(qg, k, v, mask, scale)
             torch.cuda.synchronize()
             if not torch.isfinite(out.float()).all():
                 fail(f"K5 {label} S={S} {dtype}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
-            log(f"K5 causal_flash_attention {label} B={B} nkv={nkv} g={g} S={S} d={d} "
+            log(f"K5 causal_flash_attention [{variant}] {label} B={B} nkv={nkv} g={g} S={S} d={d} "
                 f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
             if err > tol[dtype]:
                 fail(f"K5 {label} S={S} {dtype}: max error {err} above {tol[dtype]}")
             if dtype != torch.bfloat16 or not timed:
                 continue
             worst = max(worst, err)
+            # Through the wrapper, as every kernel of the line; beside it the
+            # tensor-core variant's C entry with its arguments built once (the
+            # wrapper's host work left out) and its device time, and the
+            # CUDA-core variant's C entry on the same bf16 inputs.
+            entry_out = torch.empty((B, S, nh, d), dtype=dtype, device=dev)
+            entry_args = (qg.data_ptr(), *qg.stride()[:4], k.data_ptr(), *k.stride()[:3], v.data_ptr(),
+                          *v.stride()[:3], mask.data_ptr(), entry_out.data_ptr(), B, nkv, g, S, d, scale,
+                          _build.stream_ptr(qg))
+            lib = _build.lib()
+            tc_fn = lambda: _build.check(lib.gct_causal_flash_attention_tc(*entry_args),
+                                         "gct_causal_flash_attention_tc")
             ms = time_ms(lambda: CA.causal_flash_attention(qg, k, v, mask, scale))
+            entry, dms = time_ms(tc_fn), device_ms(tc_fn)
+            cc = time_ms(lambda: _build.check(lib.gct_causal_flash_attention(1, *entry_args),
+                                              "gct_causal_flash_attention"))
             plain = time_ms(lambda: CA.causal_flash_attention_plain(qg, k, v, mask, scale), iters=5)
             # Yardstick only: one PyTorch call for the same function.
             q4 = qg.reshape(B, nh, S, d)
@@ -384,10 +476,10 @@ def check_causal(gen: torch.Generator, dev) -> dict:
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k, v, attn_mask=amask, enable_gqa=True)
             try:
-                lib = time_ms(sdpa)
+                sdpa_ms, sdpa_dms = time_ms(sdpa), device_ms(sdpa)
             except TypeError as e:  # a PyTorch without enable_gqa
                 lib_ok = False
-                lib = float("nan")
+                sdpa_ms, sdpa_dms = float("nan"), None
                 log(f"   library: scaled_dot_product_attention(enable_gqa=True) unavailable: {e}")
             # Work this data needs: q.k and P.v over the valid keys j <= i of
             # every query row, 2 operations per multiply-add.
@@ -395,14 +487,19 @@ def check_causal(gen: torch.Generator, dev) -> dict:
             ops = 4.0 * d * nh * pairs
             nbytes = (2 * B * nh * S * d + 2 * B * nkv * S * d) * 2 + B * S * 4
             bms, by = bound_ms(ops, "bf16", nbytes)
-            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
-                f"scaled_dot_product_attention(enable_gqa) {lib:.4f} ms | bound {bms:.4f} ms ({by})")
-            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("ops", ops),
-                             ("nbytes", nbytes)):
-                tot[key] += val
+            log(f"   time: kernel {ms:.4f} ms (C entry {entry:.4f} ms, device {fmt_ms(dms)}) | CUDA-core variant "
+                f"{cc:.4f} ms (C entry) | plain {plain:.4f} ms | scaled_dot_product_attention(enable_gqa) "
+                f"{sdpa_ms:.4f} ms (device {fmt_ms(sdpa_dms)}) | bound {bms:.4f} ms ({by})")
+            for key, val in (("ms", ms), ("entry_ms", entry), ("device_ms", dms), ("plain_ms", plain),
+                             ("library_ms", sdpa_ms), ("library_device_ms", sdpa_dms), ("cuda_core_ms", cc),
+                             ("ops", ops), ("nbytes", nbytes)):
+                # A device time the profiler did not record leaves its sum unmeasured.
+                tot[key] = None if tot[key] is None or val is None else tot[key] + val
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"] if lib_ok else None,
-                bound_ms=bms, bound_by=by, max_abs_err=worst,
+                bound_ms=bms, bound_by=by, max_abs_err=worst, variant=CA.TENSOR_CORE,
+                cuda_core_ms=tot["cuda_core_ms"], entry_ms=tot["entry_ms"], device_ms=tot["device_ms"],
+                library_device_ms=tot["library_device_ms"],
                 shape="sum of B=64 S=128, B=16 S=512 (nkv=2 g=6 d=128 bf16)")
 
 
@@ -886,8 +983,10 @@ def counters() -> dict:
             "row_disentangled_attention": (fused_attention, "launches_row"),
             "windowed_pos_tables": (fused_attention, "launches_win_table"),
             "tiled_attention": (fused_attention, "launches_tiled"),
-            # The tensor-core launches among those of K3, K7, K8 and K10.
+            # The tensor-core launches among those of K3, K4, K5, K7, K8 and K10.
             "int8_matmul_tc": (int8_matmul, "launches_tc"),
+            "fused_ffn_wonly_tc": (fused_ffn, "launches_wonly_tc"),
+            "causal_flash_attention_tc": (causal_attention, "launches_tc"),
             "bias_fused_attention_tc": (fused_attention, "launches_bias_tc"),
             "row_disentangled_attention_tc": (fused_attention, "launches_row_tc"),
             "tiled_attention_tc": (fused_attention, "launches_tiled_tc")}
@@ -1460,7 +1559,8 @@ def main() -> int:
         }
 
     # Each kernel's launches come from the run of the path it serves; K3's,
-    # K7's, K8's and K10's tensor-core launches among them in launches_tc.
+    # K4's, K5's, K7's, K8's and K10's tensor-core launches among them in
+    # launches_tc.
     launches, paths, launches_tc = {}, {}, {}
     with phase("phase 3: gliclass-base int8-dynamic"):
         bb = deberta_v3_config("base")
@@ -1486,9 +1586,11 @@ def main() -> int:
 
     with phase("phase 4: gliclass-base weight-only int8"):
         sub = dict(job, texts=job["texts"][:128] + job["texts"][-4:])
-        counts, shapes = run_path(cfg, qparams, tok, sub, "int8", dev, 4, "weight-only int8")
+        counts, shapes = run_path(cfg, qparams, tok, sub, "int8", dev, 4, "weight-only int8", profile=True)
         n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_wonly", bb.num_hidden_layers * n_fwd, "weight-only path")
+        # Every K4 call of the path (H = 768, I = 3072) takes the tensor-core variant.
+        expect_launches(counts, "fused_ffn_wonly_tc", counts["fused_ffn_wonly"], "weight-only path")
         expect_attention(counts, shapes, bb.num_hidden_layers, "weight-only path")
         # Every K3 linear of the path (qkv, the rel-embedding projection and o
         # of each layer, the head) takes the tensor-core variant in bf16.
@@ -1498,6 +1600,7 @@ def main() -> int:
         for name in ("int8_matmul", "fused_ffn_wonly"):
             launches[name], paths[name] = counts[name], "gliclass-base int8"
         launches_tc["int8_matmul"] = counts["int8_matmul_tc"]
+        launches_tc["fused_ffn_wonly"] = counts["fused_ffn_wonly_tc"]
 
     with phase("phase 5: flash route against bias route, gliclass-base int8-dynamic at [128, 512]"):
         route_measurement(cfg, qparams, tok, np.random.default_rng([args.seed, 7]), dev)
@@ -1546,7 +1649,10 @@ def main() -> int:
                                   "qwen-1.5B int8-dynamic", batch_size=64, hidden_tol=0.15, profile=True)
         n_fwd = len(shapes)
         expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * n_fwd, "qwen path")
+        # d = 128 in bf16: every K5 launch on tensor cores.
+        expect_launches(counts, "causal_flash_attention_tc", counts["causal_flash_attention"], "qwen path")
         launches["causal_flash_attention"] = counts["causal_flash_attention"]
+        launches_tc["causal_flash_attention"] = counts["causal_flash_attention_tc"]
         paths["causal_flash_attention"] = "gliclass-qwen-1.5B int8-dynamic"
         del qparams
         torch.cuda.empty_cache()
@@ -1563,6 +1669,7 @@ def main() -> int:
                                   "llama-1.3B (4 of 24 layers) int8-dynamic", batch_size=64)
         n_fwd = len(shapes)
         expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * n_fwd, "llama path")
+        expect_launches(counts, "causal_flash_attention_tc", counts["causal_flash_attention"], "llama path")
         del qparams
 
     sources = {
@@ -1570,8 +1677,8 @@ def main() -> int:
                                          "gliclass/c_tpu/ops/fused_attention.py:275"),
         "fused_ffn_w8a8": ("gliclass/c_tpu_torch/csrc/fused_ffn_w8a8.cu", "gliclass/c_tpu/ops/fused_ffn.py:78"),
         "int8_matmul": ("gliclass/c_tpu_torch/csrc/int8_matmul_tc.cu", "gliclass/c_tpu/ops/int8_matmul.py:35"),
-        "fused_ffn_wonly": ("gliclass/c_tpu_torch/csrc/fused_ffn_wonly.cu", "gliclass/c_tpu/ops/fused_ffn.py:91"),
-        "causal_flash_attention": ("gliclass/c_tpu_torch/csrc/causal_flash_attention.cu",
+        "fused_ffn_wonly": ("gliclass/c_tpu_torch/csrc/fused_ffn_wonly_tc.cu", "gliclass/c_tpu/ops/fused_ffn.py:91"),
+        "causal_flash_attention": ("gliclass/c_tpu_torch/csrc/causal_flash_attention_tc.cu",
                                    "gliclass/c_tpu/ops/causal_attention.py:116"),
         "abs_pos_table": ("gliclass/c_tpu_torch/csrc/abs_pos_table.cu", "gliclass/c_tpu/ops/fused_attention.py:470"),
         "bias_fused_attention": ("gliclass/c_tpu_torch/csrc/bias_fused_attention_tc.cu",
@@ -1593,9 +1700,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], "path": paths[name],
         })
-        if "variant" in r:  # K3, K7, K8 and K10: the tensor-core variant's record
+        if "variant" in r:  # K3, K4, K5, K7, K8 and K10: the tensor-core variant's record
             kernels[-1].update(variant=r["variant"], launches_tc=launches_tc[name],
                                cuda_core_ms=r["cuda_core_ms"])
+        # K4 and K5: beside ms (through the wrapper), the C entry's time with
+        # its arguments built once and the profiler's device time; K5 also
+        # SDPA's device time.
+        kernels[-1].update({key: r[key] for key in ("entry_ms", "device_ms", "library_device_ms") if key in r})
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -70,6 +70,15 @@ __device__ __forceinline__ void mm_abt(const float* A, const float* B, int ldb,
   }
 }
 
+// jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))),
+// in the JAX and plain versions' operation order (no contracted multiply-add).
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
+  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
+  return __fmul_rn(x, cdf);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory once per process.
 template <typename K> inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

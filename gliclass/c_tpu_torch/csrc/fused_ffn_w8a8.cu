@@ -74,14 +74,6 @@ __device__ __forceinline__ void gemm16x4(const int8_t* A, int lda, const int8_t*
   }
 }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
-  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
-  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
-  return __fmul_rn(x, cdf);
-}
-
 __global__ void __launch_bounds__(THREADS)
 ffn_w8a8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wu,
                 const float* __restrict__ su, const float* __restrict__ bu,

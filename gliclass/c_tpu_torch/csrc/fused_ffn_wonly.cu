@@ -37,14 +37,6 @@ using namespace gct;
 constexpr int BM = 16;
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
-  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
-  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
-  return __fmul_rn(x, cdf);
-}
-
 __device__ __forceinline__ void unpack4(uint32_t w, float f[4]) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) f[c] = (float)(int8_t)(w >> (8 * c));

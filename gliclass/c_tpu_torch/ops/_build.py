@@ -53,6 +53,10 @@ _SIGNATURES = {
         _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
     ],
     "gct_int8_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_fused_ffn_wonly_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_causal_flash_attention_tc": [
+        _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+    ],
     "gct_bias_fused_attention_tc": [
         _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _I, _I, _I, _F, _P,
     ],

@@ -5,9 +5,13 @@ Routing (no environment switch), for INT8 weights in reduced precision:
   * ``act_quant`` on (``int8-dynamic``): the fused w8a8 kernel K2
     (``csrc/fused_ffn_w8a8.cu``) — the activated [M, I] intermediate stays on
     chip, re-quantized to int8;
-  * ``act_quant`` off (weight-only ``int8``): the fused weight-only kernel K4
-    (``csrc/fused_ffn_wonly.cu``) — the intermediate stays on chip, rounded to
-    x's dtype, as the JAX package's ``_kernel_wonly``;
+  * ``act_quant`` off (weight-only ``int8``): the weight-only kernel K4, the
+    intermediate rounded to x's dtype as in the JAX package's
+    ``_kernel_wonly``. With H and I multiples of 16 (:func:`kernel_variant`)
+    its two products run on tensor cores (``csrc/fused_ffn_wonly_tc.cu``, two
+    launches through an [M, I] bf16 scratch); other shapes take the fused
+    CUDA-core kernel (``csrc/fused_ffn_wonly.cu``), which keeps the
+    intermediate on chip;
 
 fp weights or fp32 run plain ``linear`` layers (weight-only INT8 ones through
 K3). On a CPU tensor each kernel wrapper runs its plain version, the same
@@ -21,12 +25,22 @@ from typing import Any
 import torch
 
 from . import _build
+from .fused_attention import CUDA_CORE, TENSOR_CORE
 from .layers import act_quant_enabled, activation, gelu_tanh, int_mm, linear, row_quant
 
 Params = dict[str, Any]
 
 launches = 0  # K2 launches since the last reset (the main path's proof)
-launches_wonly = 0  # K4 launches since the last reset
+launches_wonly = 0  # K4 calls since the last reset, one per FFN on either variant
+launches_wonly_tc = 0  # the K4 calls among them that took the tensor-core variant
+
+
+def kernel_variant(H: int, I: int) -> str:
+    """The variant of K4 (bf16 x) that takes an FFN of width H and
+    intermediate width I: the tensor-core kernel when both are multiples of
+    16 (K3′'s core: 16-byte copies of x, h and weight rows, 16-wide output
+    tiles), else the fused CUDA-core kernel."""
+    return TENSOR_CORE if H % 16 == 0 and I % 16 == 0 else CUDA_CORE
 
 
 _GELUS = ("gelu", "gelu_new", "gelu_pytorch_tanh")
@@ -105,15 +119,28 @@ def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
 
 
 def fused_ffn_wonly(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
-    """Fused weight-only INT8 FFN (K4), same arguments as
-    :func:`fused_ffn_w8a8`."""
+    """Weight-only INT8 FFN (K4), same arguments as :func:`fused_ffn_w8a8`;
+    the variant by :func:`kernel_variant`."""
     if not x.is_cuda:
         return fused_ffn_wonly_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
-    global launches_wonly
+    global launches_wonly, launches_wonly_tc
     args = (x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn)
     M, H, I = _check_ffn_args("fused_ffn_wonly", *args, hidden_act)
-    out = _launch_ffn("gct_fused_ffn_wonly", *args, M, H, I)
+    tc = kernel_variant(H, I) == TENSOR_CORE
+    if tc:
+        # 16-byte copies of x and weight rows: realign a view that starts off a 16-byte boundary.
+        x, wq_up, wq_dn = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, wq_up, wq_dn))
+        h = torch.empty((M, I), dtype=x.dtype, device=x.device)
+        out = torch.empty_like(x)
+        rc = _build.lib().gct_fused_ffn_wonly_tc(
+            x.data_ptr(), wq_up.data_ptr(), s_up.data_ptr(), b_up.data_ptr(), wq_dn.data_ptr(), s_dn.data_ptr(),
+            b_dn.data_ptr(), h.data_ptr(), out.data_ptr(), M, H, I, _build.stream_ptr(x),
+        )
+        _build.check(rc, "gct_fused_ffn_wonly_tc")
+    else:
+        out = _launch_ffn("gct_fused_ffn_wonly", *args, M, H, I)
     launches_wonly += 1
+    launches_wonly_tc += tc
     return out
 
 

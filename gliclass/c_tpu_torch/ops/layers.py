@@ -88,17 +88,38 @@ def row_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 [M, K] x int8 [K, N] -> int32 [M, N], exact.
+    """int8 [M, K] x int8 [K, N] -> int32 [M, N], exact, at any shape; on
+    the card through :func:`int_mm_padded`."""
+    return int_mm_padded(a, b) if a.is_cuda else torch._int_mm(a, b)
 
-    ``torch._int_mm`` on the card needs M > 16 and K, N multiples of 8
-    (checked in its CUDA implementation); short row counts (the head's
-    per-text rows) are padded with zero rows, which leaves the other rows
-    unchanged."""
-    m = a.shape[0]
-    if a.is_cuda and m <= 16:
-        a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
-        return torch._int_mm(a, b)[:m]
-    return torch._int_mm(a, b)
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` on operands padded with zeros to shapes the card
+    takes, the result sliced back: exact, since zero rows of ``a`` give rows
+    that are cut, zero K columns of ``a`` meet zero K rows of ``b`` and add
+    nothing, and zero columns of ``b`` give columns that are cut.
+
+    On the card ``torch._int_mm`` itself checks M > 16 and K, N multiples of
+    8, and cuBLASLt refuses more (``CUBLAS_STATUS_NOT_SUPPORTED``;
+    ``scripts/int_mm_shapes.py``): at K = 32, 40, 64 and 96 every row
+    count M that is not a multiple of 32 (17, 24, 100, 342, 344, 1000, 8190
+    among them; 32, 64, 352 and 8192 run), where at K = 8, 16, 256 and 768
+    every M > 16 runs. So all three dimensions are padded to multiples of
+    32: the main paths' products (M = rows x a seq bucket, rows a power of
+    two from 4 on; K and N the model's widths) need no copy."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = (_round_up(x, 32) for x in (m, k, n))
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    out = torch._int_mm(a, b)
+    return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
 def _linear_w8a8(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -145,18 +145,54 @@ def test_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
         np.testing.assert_allclose(got, want, atol=3e-2)
 
 
-@pytest.mark.parametrize("M,H,I", [(1, 128, 256), (40, 128, 256), (300, 768, 3072), (8192, 768, 3072)])
+# (M, H, I): multiples of 16 take the tensor-core variant (gliclass-base's
+# FFN at M = 8192 among them); H = 100, I = 196 and I = 200 the fused
+# CUDA-core kernel.
+@pytest.mark.parametrize("M,H,I", [(1, 128, 256), (40, 128, 256), (300, 768, 3072), (8192, 768, 3072),
+                                   (1, 100, 196), (40, 100, 196), (300, 96, 200), (130, 32, 64)])
 def test_ffn_wonly_kernel_matches_plain(dev, M, H, I):
     args = _ffn_args(dev, M, H, I, M + 1)
-    FF.launches_wonly = 0
+    FF.launches_wonly = FF.launches_wonly_tc = 0
     got = FF.fused_ffn_wonly(*args).float()
-    assert FF.launches_wonly == 1
+    assert (FF.launches_wonly, FF.launches_wonly_tc) == (1, int(H % 16 == 0 and I % 16 == 0))
     want = FF.fused_ffn_wonly_plain(*args).float()
     torch.cuda.synchronize()
     # a few bf16 ulps of the output: the fp32 sums differ in order, which can
     # move one bf16 step of the rounded intermediate
     tol = 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("H,I,tc", [(768, 3072, 1), (128, 256, 1), (32, 64, 1), (100, 196, 0), (96, 200, 0),
+                                    (200, 96, 0)])
+def test_ffn_wonly_variant_launch_counters(dev, H, I, tc):
+    """Every K4 call counts once in launches_wonly (the tensor-core variant's
+    two launches too), only those with H and I multiples of 16 in
+    launches_wonly_tc."""
+    args = _ffn_args(dev, 70, H, I, H + I)
+    FF.launches_wonly = FF.launches_wonly_tc = 0
+    got = FF.fused_ffn_wonly(*args).float()
+    assert (FF.launches_wonly, FF.launches_wonly_tc) == (1, tc)
+    assert FF.kernel_variant(H, I) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
+    want = FF.fused_ffn_wonly_plain(*args).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+
+
+def test_ffn_wonly_tc_kernel_realigns_a_view_and_takes_stacked_weights(dev):
+    """x rows starting 2 bytes off a 16-byte boundary (a view one element
+    into its storage) are copied; weights as slices of a stacked [L, H, I]
+    tensor (the engine's layout) are taken as they are."""
+    x, wu, su, bu, wd, sd, bd, act = _ffn_args(dev, 40, 128, 256, 5)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    xv = flat[1:].view(40, 128)
+    wus, wds = torch.stack([wu.flip(0), wu]), torch.stack([wd.flip(0), wd])
+    FF.launches_wonly_tc = 0
+    got = FF.fused_ffn_wonly(xv, wus[1], su, bu, wds[1], sd, bd, act).float()
+    assert FF.launches_wonly_tc == 1
+    want = FF.fused_ffn_wonly_plain(x, wu, su, bu, wd, sd, bd, act).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
 
 
 def test_ffn_kernels_check_inputs(dev):
@@ -186,11 +222,14 @@ def _causal_inputs(dev, B, nkv, g, S, d, dtype, seed):
 @pytest.mark.parametrize("nkv,g,d", [(2, 6, 128), (4, 1, 128), (1, 4, 64), (2, 2, 8)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_causal_kernel_matches_plain(dev, S, nkv, g, d, dtype, tol):
+    """bf16 at d = 64 and 128 runs the tensor-core variant (exp by
+    ex2.approx, one reciprocal per row: within bf16's 2e-2), fp32 and d = 8
+    the CUDA-core one."""
     qg, k, v, mask = _causal_inputs(dev, 3, nkv, g, S, d, dtype, S + d)
     scale = 1.0 / math.sqrt(d)
-    CA.launches = 0
+    CA.launches = CA.launches_tc = 0
     got = CA.causal_flash_attention(qg, k, v, mask, scale)
-    assert CA.launches == 1
+    assert (CA.launches, CA.launches_tc) == (1, int(dtype == torch.bfloat16 and d != 8))
     want = CA.causal_flash_attention_plain(qg, k, v, mask, scale)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got.float()).all()
@@ -207,6 +246,74 @@ def test_causal_kernel_row_without_valid_key_is_zero(dev):
     torch.cuda.synchronize()
     assert (got[..., :66, :] == 0).all()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("S", [1, 63, 129, 300, 1024, 2048])
+@pytest.mark.parametrize("nkv,g,d", [(2, 6, 128), (1, 3, 16), (2, 2, 32), (1, 2, 48), (2, 1, 80), (1, 1, 112)])
+def test_causal_tc_kernel_matches_plain(dev, S, nkv, g, d):
+    """K5's tensor-core variant at every head width it takes (d below 64 or
+    128 zero-padded in the tile) and lengths off the 64-key tiles."""
+    qg, k, v, mask = _causal_inputs(dev, 3, nkv, g, S, d, torch.bfloat16, S + 7 * d)
+    scale = 1.0 / math.sqrt(d)
+    CA.launches_tc = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, scale)
+    assert CA.launches_tc == 1
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert got.permute(0, 3, 1, 2, 4).is_contiguous()
+
+
+@pytest.mark.parametrize("S", [70, 200])
+def test_causal_tc_kernel_row_without_valid_key_is_zero(dev, S):
+    """bf16: rows that see no valid key (the first key tile wholly masked,
+    and a batch row masked everywhere) give exactly 0."""
+    qg, k, v, mask = _causal_inputs(dev, 2, 2, 2, S, 64, torch.bfloat16, 0)
+    mask[0, :66] = 0
+    mask[1] = 0
+    CA.launches_tc = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, 0.125)
+    assert CA.launches_tc == 1
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert (got[0, ..., :66, :] == 0).all() and (got[1] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_causal_tc_kernel_realigns_views(dev):
+    """q starting 2 bytes off a 16-byte boundary and k, v with a row stride
+    that is no multiple of 8 elements: the wrapper copies them, the
+    tensor-core variant runs."""
+    B, nkv, g, S, d = 2, 2, 3, 100, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flat = torch.randn(B * nkv * g * S * d + 1, generator=gen, device=dev).to(torch.bfloat16)
+    qg = flat[1:].view(B, nkv, g, S, d)
+    k, v = (torch.randn(B, nkv, S, d + 4, generator=gen, device=dev).to(torch.bfloat16)[..., :d] for _ in range(2))
+    mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+    mask[1, 60:] = 0
+    CA.launches_tc = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, 0.125)
+    assert CA.launches_tc == 1
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,d,tc", [
+    (torch.bfloat16, 128, 1), (torch.bfloat16, 64, 1), (torch.bfloat16, 16, 1), (torch.bfloat16, 8, 0),
+    (torch.bfloat16, 40, 0), (torch.float32, 128, 0), (torch.float32, 64, 0)])
+def test_causal_variant_launch_counters(dev, dtype, d, tc):
+    """Every K5 launch counts in launches, only bf16 with d a multiple of 16
+    in launches_tc; fp32 keeps the CUDA-core kernel at 1e-4."""
+    qg, k, v, mask = _causal_inputs(dev, 3, 2, 2, 90, d, dtype, d)
+    CA.launches = CA.launches_tc = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, 1.0 / math.sqrt(d))
+    assert (CA.launches, CA.launches_tc) == (1, tc)
+    assert CA.kernel_variant(dtype, d) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_causal_kernel_checks_inputs(dev):
@@ -261,9 +368,9 @@ def test_decoder_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
     for quant_mode in ("int8-dynamic", "int8"):
         rt = RuntimeConfig(batch_size=8, compute_dtype="bfloat16", quant_mode=quant_mode)
         card = InferenceEngine(cfg, params, rt)
-        CA.launches = 0
+        CA.launches = CA.launches_tc = 0
         got = card.run(batch, 4)
-        assert CA.launches == L
+        assert (CA.launches, CA.launches_tc) == (L, L)
         want = InferenceEngine(cfg, params, rt, device="cpu").run(batch, 4)
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, atol=3e-2)
@@ -845,6 +952,50 @@ def test_bias_variant_launch_counters(dev, dtype, bias_dtype, tc):
     want = FA.bias_fused_attention_plain(q, k, v, c2p, p2c, mask, 8.0)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The w8a8 linears' int8 product at any row count
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M", [1, 16, 17, 20, 342, 343, 344, 1001, 8192])
+@pytest.mark.parametrize("K,N", [(32, 32), (768, 768), (36, 40)])
+def test_int_mm_exact_on_card(dev, M, K, N):
+    """int_mm pads what torch._int_mm refuses (M <= 16, K or N not a
+    multiple of 8, and at small K row counts that are not a multiple of 32,
+    M = 342 among them) and equals the exact product."""
+    from gliclass.c_tpu_torch.ops.layers import int_mm
+
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    got = int_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ b.cpu().long())
+
+
+@pytest.mark.parametrize("M", [1, 17, 342, 343, 1000])
+@pytest.mark.parametrize("K,N", [(32, 32), (768, 768)])
+def test_linear_w8a8_matches_cpu_at_any_row_count(dev, M, K, N):
+    """The w8a8 linear on the card: against the exact int64 product of its
+    own int8 activations, scaled as it scales (to fp32 rounding), and
+    against the same linear on the CPU. The two devices' row scales may
+    differ in the last bit (measured: 4.3% of the outputs differ at M = 342,
+    K = 768), which moves an element near a rounding boundary by one int8
+    step: a relative L2 error far below 1e-2."""
+    from gliclass.c_tpu_torch.ops.layers import _linear_w8a8, row_quant
+
+    rng = np.random.default_rng(M + N)
+    w_q, scale = quantize_weight(rng.normal(0, 0.05, (K, N)).astype(np.float32))
+    p = {"w_q": torch.from_numpy(w_q), "scale": torch.from_numpy(scale)}
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
+    got = _linear_w8a8({n: t.to(dev) for n, t in p.items()}, x.to(dev))
+    x_q, s_x = row_quant(x.to(dev).float())
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    exact = (x_q.cpu().long() @ p["w_q"].long()).float() * s_x.cpu() * p["scale"]
+    torch.testing.assert_close(got.cpu(), exact, rtol=1e-6, atol=1e-6)
+    want = _linear_w8a8(p, x)
+    assert ((got.cpu() - want).norm() / want.norm()).item() <= 1e-2
 
 
 @pytest.mark.parametrize("compute_dtype,quant_mode", [("float32", "int8"), ("bfloat16", "int8"),

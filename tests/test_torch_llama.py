@@ -172,10 +172,35 @@ def test_causal_plain_row_without_valid_key_is_zero():
 
 def test_causal_wrapper_on_cpu_runs_plain_and_counts_nothing():
     qg, k, v, mask = (torch.from_numpy(a) for a in _attn_inputs(1, 2, 2, 2, 10, 8))
-    before = CA.launches
+    before = CA.launches, CA.launches_tc
     got = CA.causal_flash_attention(qg, k, v, mask, 0.25)
-    assert CA.launches == before
+    assert (CA.launches, CA.launches_tc) == before
     torch.testing.assert_close(got, CA.causal_flash_attention_plain(qg, k, v, mask, 0.25), atol=0, rtol=0)
+
+
+def test_causal_wrapper_on_cpu_bf16_runs_plain_and_counts_nothing():
+    """bf16 at a width the tensor-core variant takes: on a CPU tensor the
+    wrapper still runs the plain version and counts no launch of either."""
+    qg, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _attn_inputs(2, 2, 2, 3, 20, 16)[:3])
+    mask = torch.from_numpy(_attn_inputs(2, 2, 2, 3, 20, 16)[3])
+    assert CA.kernel_variant(qg.dtype, 16) == CA.TENSOR_CORE
+    before = CA.launches, CA.launches_tc
+    got = CA.causal_flash_attention(qg, k, v, mask, 0.25)
+    assert (CA.launches, CA.launches_tc) == before
+    assert torch.equal(got, CA.causal_flash_attention_plain(qg, k, v, mask, 0.25))
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 16, "tc"),
+    (torch.bfloat16, 48, "tc"), (torch.bfloat16, 112, "tc"), (torch.bfloat16, 8, "cc"),
+    (torch.bfloat16, 40, "cc"), (torch.bfloat16, 100, "cc"), (torch.bfloat16, 144, "cc"),
+    (torch.float32, 128, "cc"), (torch.float32, 64, "cc"), (torch.float32, 8, "cc"),
+])
+def test_causal_kernel_variant_predicate(dtype, d, want):
+    """K5's tensor-core variant takes bf16 q/k/v with d a multiple of 16 up
+    to 128 (qwen-1.5B's and Llama-1.3B's d = 128); fp32 and the other widths
+    keep the CUDA-core kernel."""
+    assert CA.kernel_variant(dtype, d) == {"tc": CA.TENSOR_CORE, "cc": CA.CUDA_CORE}[want]
 
 
 def _attn_block(model_type, nkv, seed=3):

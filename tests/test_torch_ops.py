@@ -310,11 +310,38 @@ def test_fused_ffn_wonly_plain_matches_pallas_interpret():
         hidden_act="gelu", act_quant=False, bm=8, out_dtype=jnp.bfloat16, interpret=True,
     )
     t = torch.from_numpy
-    before = tffn.launches_wonly
+    assert tffn.kernel_variant(H, I) == tfa.TENSOR_CORE
+    before = tffn.launches_wonly, tffn.launches_wonly_tc
     got = tffn.fused_ffn_wonly(_t(x, "bfloat16"), t(wu), t(su), t(bu), t(wd), t(sd), t(bd), "gelu")
-    assert tffn.launches_wonly == before  # a CPU tensor runs the plain version
+    assert (tffn.launches_wonly, tffn.launches_wonly_tc) == before  # a CPU tensor runs the plain version
     assert got.dtype == torch.bfloat16 and got.shape == (M, H)
     np.testing.assert_allclose(_np(got), _np(want), atol=2 * BF16_RTOL * np.abs(_np(want)).max())
+
+
+@pytest.mark.parametrize("H,I,want", [
+    (768, 3072, "tc"), (1024, 4096, "tc"), (128, 256, "tc"), (32, 64, "tc"), (16, 16, "tc"),
+    (100, 196, "cc"), (96, 200, "cc"), (200, 96, "cc"), (36, 64, "cc"), (8, 32, "cc"),
+])
+def test_fused_ffn_wonly_kernel_variant_predicate(H, I, want):
+    """K4's tensor-core variant takes H and I multiples of 16 (gliclass-base's
+    768 and 3072, the tiny test models' widths); other shapes keep the fused
+    CUDA-core kernel."""
+    assert tffn.kernel_variant(H, I) == {"tc": tfa.TENSOR_CORE, "cc": tfa.CUDA_CORE}[want]
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 342, 8192])
+@pytest.mark.parametrize("K,N", [(32, 32), (36, 40), (768, 24)])
+def test_int_mm_padded_exact_on_cpu(M, K, N):
+    """The card's padding of torch._int_mm's operands (M, K and N to
+    multiples of 32), run on CPU tensors: the sliced result equals the int64
+    product exactly."""
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    got = tl.int_mm_padded(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.long(), a.long() @ b.long())
+    assert torch.equal(tl.int_mm(a, b), got)
 
 
 @pytest.mark.parametrize("mode", ["w8a8", "weight-only", "fp32"])

@@ -16,22 +16,25 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    bias route's absolute position table (exact), K7 its softmax over
    precomputed biases, K8 whole-row disentangled attention, K9 the tiled
    route's windowed position tables (exact), K10 its flash attention over
-   them. K3, K4, K5, K7, K8 and K10 run their bf16 tensor-core variants on
-   bf16 inputs (K3 at K a multiple of 8 and N of 16, K4 at H and I multiples
-   of 16, K5 at d a multiple of 16; asserted by their counters) and their
-   CUDA-core variants on fp32, mixed types and the other shapes; the
-   CUDA-core variants are timed on the bf16 inputs too. Every kernel's time
-   is taken through its wrapper; K4 and K5 also give their tensor-core C
-   entry's time with the arguments built once and the profiler's device
-   time (K5 SDPA's too).
+   them. K1, K2, K3, K4, K5, K7, K8 and K10 run their bf16 (K2: int8)
+   tensor-core variants on bf16 inputs (K2 and K4 at H and I multiples of
+   16, K3 at K a multiple of 8 and N of 16, K5 at d a multiple of 16;
+   asserted by their counters) and their CUDA-core variants on fp32, mixed
+   types and the other shapes; the CUDA-core variants are timed on the bf16
+   inputs too, and K2's tensor-core variant must equal its CUDA-core one bit
+   for bit. Every kernel's time is taken through its wrapper; K2, K4 and K5
+   also give their tensor-core C entry's time with the arguments built once
+   and the profiler's device time (K5 SDPA's too); K1 is also timed alone at
+   the four shapes the main path sends it.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
    in bf16 "int8-dynamic"; texts/s (median of 3 passes), stage timings,
    launch counts of K2 and of the attention kernels of the route "auto"
    takes at each forward's (rows, seq) (reset just before the pass, read
-   just after), a torch.profiler breakdown of device time by kernel, peak device
-   memory, and agreement of the first 8 texts with the same port on the CPU.
+   just after; every K2 and K1 launch on tensor cores), a torch.profiler
+   breakdown of device time by kernel, peak device memory, and agreement of
+   the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
    launch counts of K4 (12 per forward) and K3 (every launch of both on
    tensor cores), a torch.profiler breakdown of device time by kernel,
@@ -44,7 +47,8 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    run, and fp32 hidden states bias against flash (1e-4).
 6. The four attention routes on the same model, "int8-dynamic": the whole
    forward at [B, 512] for B = 128, 64, 32, 16, 8, [B, 128] for B = 128, 32 and
-   the main job's [128, 56] and [128, 88] with the route forced to
+   the main job's [128, 56], [128, 88], [128, 72], [64, 56] and [32, 72]
+   with the route forced to
    flash, bias, row (K8) and tiled (K9 + K10), two turns in opposite
    orders; classify_job on phase 3's job under row and under tiled (texts/s,
    forwards, peak memory, a profile, agreement with the CPU) with exact
@@ -179,90 +183,178 @@ def bound_ms(ops: float, op_type: str, nbytes: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_attention(gen: torch.Generator, dev) -> dict:
+# K1's (rows, bucket) shapes in phase 2: the three whose times are summed
+# (in fp32 and bf16), then the other forwards of the main path in bf16.
+# Phase 3 fails if "auto" sends K1 a shape outside both.
+K1_SUMMED_SHAPES = ((128, 56), (128, 128), (16, 512))
+K1_MAIN_SHAPES = ((128, 56), (128, 72), (64, 56), (32, 72), (128, 88))
+
+
+def check_attention(gen: torch.Generator, dev, seed: int) -> dict:
     from gliclass.c_tpu_torch.ops import fused_attention as FA
 
     h, d = 12, 64
     H = h * d
     scale = math.sqrt(d * 3)
+    # bf16 runs the tensor-core variant (fp32 sums in another order, exp by
+    # ex2.approx at the running max, one reciprocal per row), fp32 the
+    # CUDA-core one.
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     worst = 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cuda_core_ms=0.0, ops=0.0, nbytes=0.0)
+
+    def inputs(g, B, S, dtype):
+        # q/k/v as head-split views of one fused [B, S, 3H] projection, the
+        # layout the model passes.
+        qkv = torch.randn(B, S, 3 * H, generator=g, device=dev).to(dtype)
+        q, k, v = (qkv[..., i * H:(i + 1) * H].reshape(B, S, h, d).transpose(1, 2) for i in range(3))
+        pos_k = torch.randn(h, 2 * S - 1, d, generator=g, device=dev).to(dtype)
+        pos_q = torch.randn(h, 2 * S - 1, d, generator=g, device=dev).to(dtype)
+        lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        lengths[0] = S
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+        return q, k, v, pos_k, pos_q, mask
+
     # (rows, bucket) as the main path launches them: full 128-row batches of
     # short prompts, and the 16 long texts of the 512 bucket.
-    for B, S in ((128, 56), (128, 128), (16, 512)):
+    for B, S in K1_SUMMED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            # q/k/v as head-split views of one fused [B, S, 3H] projection,
-            # the layout the model passes.
-            qkv = torch.randn(B, S, 3 * H, generator=gen, device=dev).to(dtype)
-            q, k, v = (qkv[..., i * H:(i + 1) * H].reshape(B, S, h, d).transpose(1, 2) for i in range(3))
-            pos_k = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
-            pos_q = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
-            lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
-            lengths[0] = S
-            mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
-            out = FA.flash_disentangled_attention(q, k, v, pos_k, pos_q, mask, scale)
-            ref = FA.flash_disentangled_attention_plain(q, k, v, pos_k, pos_q, mask, scale)
+            args = inputs(gen, B, S, dtype)
+            FA.launches = FA.launches_flash_tc = 0
+            out = FA.flash_disentangled_attention(*args, scale)
+            variant, tc = FA.kernel_variant(dtype), int(dtype == torch.bfloat16)
+            if (FA.launches, FA.launches_flash_tc) != (1, tc):
+                fail(f"K1 S={S} {dtype}: {FA.launches} launches, {FA.launches_flash_tc} on tensor cores; "
+                     f"expected 1 and {tc}")
+            ref = FA.flash_disentangled_attention_plain(*args, scale)
             torch.cuda.synchronize()
             if not torch.isfinite(out.float()).all():
                 fail(f"K1 S={S} {dtype}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
-            log(f"K1 flash_disentangled_attention B={B} h={h} S={S} d={d} {str(dtype)[6:]}: "
+            log(f"K1 flash_disentangled_attention [{variant}] B={B} h={h} S={S} d={d} {str(dtype)[6:]}: "
                 f"max|kernel-plain|={err:.3e} (tol {tol[dtype]:.0e})")
             if err > tol[dtype]:
                 fail(f"K1 S={S} {dtype}: max error {err} above {tol[dtype]}")
             if dtype != torch.bfloat16:
                 continue
             worst = max(worst, err)
-            ms = time_ms(lambda: FA.flash_disentangled_attention(q, k, v, pos_k, pos_q, mask, scale))
-            plain = time_ms(lambda: FA.flash_disentangled_attention_plain(q, k, v, pos_k, pos_q, mask, scale), iters=10)
+            ms = time_ms(lambda: FA.flash_disentangled_attention(*args, scale))
+            cc = cuda_core_ms("gct_flash_disentangled_attention", *args[:3], args[3:5], args[5], scale)
+            plain = time_ms(lambda: FA.flash_disentangled_attention_plain(*args, scale), iters=10)
+            lib = sdpa_rel_ms(*args, scale)
             # Work the function needs: qk, c2p, p2c and P.v, 2*S*S*d each.
-            ops = B * h * 8.0 * S * S * d
-            nbytes = 4 * B * h * S * d * 2 + 2 * h * (2 * S - 1) * d * 2 + B * S * 4
-            bms, by = bound_ms(ops, "bf16", nbytes)
-            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {bms:.4f} ms ({by})")
-            for key, val in (("ms", ms), ("plain_ms", plain), ("ops", ops), ("nbytes", nbytes)):
+            bms, by, ops, nbytes = attention_bound(B, S, 2 * h * (2 * S - 1) * d * 2)
+            log(f"   time: kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | plain {plain:.4f} ms | "
+                f"scaled_dot_product_attention {lib:.4f} ms | bound {bms:.4f} ms ({by})")
+            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("cuda_core_ms", cc),
+                             ("ops", ops), ("nbytes", nbytes)):
                 tot[key] += val
+            del args, out, ref
+            torch.cuda.empty_cache()
+    # Every shape "auto" sends to K1 on the main path (phase 3; [16, 512]
+    # above), with their ragged last query and key tiles, held against the
+    # plain version and timed (inputs from a generator of their own, so later
+    # checks draw as before).
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    for B, S in K1_MAIN_SHAPES:
+        args = inputs(g, B, S, torch.bfloat16)
+        out = FA.flash_disentangled_attention(*args, scale)
+        ref = FA.flash_disentangled_attention_plain(*args, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"K1 [{B}, {S}] bf16: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        if err > tol[torch.bfloat16]:
+            fail(f"K1 [{B}, {S}] bf16: max error {err} above {tol[torch.bfloat16]}")
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.flash_disentangled_attention(*args, scale))
+        cc = cuda_core_ms("gct_flash_disentangled_attention", *args[:3], args[3:5], args[5], scale)
+        lib = sdpa_rel_ms(*args, scale)
+        bms, by, _, _ = attention_bound(B, S, 2 * h * (2 * S - 1) * d * 2)
+        log(f"K1 main-path shape [{B}, {S}] bf16: max|kernel-plain|={err:.3e} (tol {tol[torch.bfloat16]:.0e}) | "
+            f"kernel {ms:.4f} ms | CUDA-core variant {cc:.4f} ms | scaled_dot_product_attention {lib:.4f} ms | "
+            f"bound {bms:.4f} ms ({by})")
+        del args, out, ref
     bms, by = bound_ms(tot["ops"], "bf16", tot["nbytes"])
-    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by, max_abs_err=worst,
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=bms, bound_by=by,
+                max_abs_err=worst, variant=FA.TENSOR_CORE, cuda_core_ms=tot["cuda_core_ms"],
                 shape="sum of B=128 S=56, B=128 S=128, B=16 S=512 (h=12 d=64 bf16)")
 
 
-def check_ffn(gen: torch.Generator, dev, rng: np.random.Generator) -> dict:
+def check_ffn(gen: torch.Generator, dev, rng: np.random.Generator, seed: int) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import fused_ffn as FF
     from gliclass.c_tpu_torch.ops.quant import quantize_weight
 
-    M, H, I = 8192, 768, 3072
-    wu, su = quantize_weight(rng.normal(0, 0.02, (H, I)).astype(np.float32))
-    wd, sd = quantize_weight(rng.normal(0, 0.02, (I, H)).astype(np.float32))
-    t = lambda a: torch.from_numpy(a).to(dev)
-    wu, su, wd, sd = t(wu), t(su), t(wd), t(sd)
-    bu = t(rng.normal(0, 0.02, I).astype(np.float32))
-    bd = t(rng.normal(0, 0.02, H).astype(np.float32))
-    x = torch.randn(M, H, generator=gen, device=dev).to(torch.bfloat16)
-    args = (x, wu, su, bu, wd, sd, bd, "gelu")
-    out = FF.fused_ffn_w8a8(*args)
-    ref = FF.fused_ffn_w8a8_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out.float()).all():
-        fail("K2: non-finite output")
-    err = (out.float() - ref.float()).abs().max().item()
-    scale_ref = ref.float().abs().max().item()
-    # bf16 output: a few ulps at the output's magnitude, plus the rare int8
-    # re-quantization flip where the kernel's and PyTorch's tanh differ.
-    tol = 4 * 2.0 ** (math.floor(math.log2(scale_ref)) - 7)
-    log(f"K2 fused_ffn_w8a8 M={M} H={H} I={I}: max|kernel-plain|={err:.3e} "
-        f"(tol {tol:.3e}, max|y| {scale_ref:.3f})")
-    if err > tol:
-        fail(f"K2: max error {err} above {tol}")
-    ms = time_ms(lambda: FF.fused_ffn_w8a8(*args))
-    plain = time_ms(lambda: FF.fused_ffn_w8a8_plain(*args), iters=10)
-    ops = 4.0 * M * H * I
-    nbytes = M * H * 2 * 2 + 2 * H * I + (I + H) * 4 * 2
-    bms, by = bound_ms(ops, "int8", nbytes)
-    log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {bms:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                shape=f"M={M} H={H} I={I}")
+    # (M, H, I, timed): gliclass-base's FFN at M = 8192 (drawn from ``rng``
+    # and ``gen`` as before the variant came), then a row count that is not a
+    # multiple of the 128-row tiles (generators of its own). Both take the
+    # tensor-core variant, which must equal the CUDA-core K2 bit for bit.
+    rec = None
+    rng2, gen2 = np.random.default_rng([seed, 12]), torch.Generator(device=dev).manual_seed(seed + 12)
+    for M, H, I, timed in ((8192, 768, 3072, True), (300, 768, 3072, False)):
+        r, g = (rng, gen) if timed else (rng2, gen2)
+        wu, su = quantize_weight(r.normal(0, 0.02, (H, I)).astype(np.float32))
+        wd, sd = quantize_weight(r.normal(0, 0.02, (I, H)).astype(np.float32))
+        t = lambda a: torch.from_numpy(a).to(dev)
+        wu, su, wd, sd = t(wu), t(su), t(wd), t(sd)
+        bu = t(r.normal(0, 0.02, I).astype(np.float32))
+        bd = t(r.normal(0, 0.02, H).astype(np.float32))
+        x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
+        args = (x, wu, su, bu, wd, sd, bd, "gelu")
+        wt = dict(wt_up=FF.nk_weight(wu), wt_dn=FF.nk_weight(wd))  # as the engine makes them, once
+        FF.launches = FF.launches_tc = 0
+        out = FF.fused_ffn_w8a8(*args, **wt)
+        variant, tc = FF.kernel_variant(H, I), int(H % 16 == 0 and I % 16 == 0)
+        if (FF.launches, FF.launches_tc) != (1, tc):
+            fail(f"K2 M={M}: {FF.launches} calls, {FF.launches_tc} on tensor cores; expected 1 and {tc}")
+        ref = FF.fused_ffn_w8a8_plain(*args)
+        # The CUDA-core variant on the same inputs, its C entry called directly
+        # (the wrapper sends H, I multiples of 16 to tensor cores).
+        cc_out = torch.empty_like(x)
+        cc_args = (*(a.data_ptr() for a in args[:7]), cc_out.data_ptr(), M, H, I, _build.stream_ptr(x))
+        cc_fn = lambda: _build.check(_build.lib().gct_fused_ffn_w8a8(*cc_args), "gct_fused_ffn_w8a8")
+        cc_fn()
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"K2 M={M}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        scale_ref = ref.float().abs().max().item()
+        # bf16 output: a few ulps at the output's magnitude, plus the rare int8
+        # re-quantization flip where the kernel's and PyTorch's tanh differ.
+        tol = 4 * 2.0 ** (math.floor(math.log2(scale_ref)) - 7)
+        same = torch.equal(out, cc_out)
+        log(f"K2 fused_ffn_w8a8 [{variant}] M={M} H={H} I={I}: max|kernel-plain|={err:.3e} "
+            f"(tol {tol:.3e}, max|y| {scale_ref:.3f}); {'equal' if same else 'DIFFERENT'} to the CUDA-core K2 "
+            f"bit for bit (max|diff| {(out.float() - cc_out.float()).abs().max().item():.3e})")
+        if err > tol:
+            fail(f"K2 M={M}: max error {err} above {tol}")
+        if not same:
+            fail(f"K2 M={M}: the tensor-core variant differs from the CUDA-core one")
+        if not timed:
+            continue
+        # Through the wrapper with the engine's [N, K] weights, as on the main
+        # path; beside it the profiler's device time of the four launches of
+        # the tensor-core C entry, by kernel.
+        tc_out = torch.empty_like(x)
+        tc_args, scratch = FF.w8a8_tc_args(x, wt["wt_up"], su, bu, wt["wt_dn"], sd, bd, tc_out)
+        tc_fn = lambda: _build.check(_build.lib().gct_fused_ffn_w8a8_tc(*tc_args), "gct_fused_ffn_w8a8_tc")
+        ms = time_ms(lambda: FF.fused_ffn_w8a8(*args, **wt))
+        entry = time_ms(tc_fn)
+        by_kernel = device_ms_by_kernel(tc_fn)
+        dms = sum(by_kernel.values()) if by_kernel else None
+        cc = time_ms(cc_fn)
+        plain = time_ms(lambda: FF.fused_ffn_w8a8_plain(*args), iters=10)
+        ops = 4.0 * M * H * I
+        nbytes = M * H * 2 * 2 + 2 * H * I + (I + H) * 4 * 2
+        bms, by = bound_ms(ops, "int8", nbytes)
+        log(f"   time: kernel {ms:.4f} ms (C entry {entry:.4f} ms, device {fmt_ms(dms)}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in by_kernel.items()) + f") | CUDA-core variant {cc:.4f} ms (C entry) | "
+            f"plain {plain:.4f} ms | bound {bms:.4f} ms ({by}) | library: none (no one PyTorch call computes "
+            "up, gelu, re-quantization and down)")
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err, variant=variant,
+                   cuda_core_ms=cc, entry_ms=entry, device_ms=dms, shape=f"M={M} H={H} I={I}")
+    return rec
 
 
 def check_int8_matmul(gen: torch.Generator, dev, rng: np.random.Generator, seed: int) -> dict:
@@ -983,7 +1075,9 @@ def counters() -> dict:
             "row_disentangled_attention": (fused_attention, "launches_row"),
             "windowed_pos_tables": (fused_attention, "launches_win_table"),
             "tiled_attention": (fused_attention, "launches_tiled"),
-            # The tensor-core launches among those of K3, K4, K5, K7, K8 and K10.
+            # The tensor-core launches among those of K1, K2, K3, K4, K5, K7, K8 and K10.
+            "flash_disentangled_attention_tc": (fused_attention, "launches_flash_tc"),
+            "fused_ffn_w8a8_tc": (fused_ffn, "launches_tc"),
             "int8_matmul_tc": (int8_matmul, "launches_tc"),
             "fused_ffn_wonly_tc": (fused_ffn, "launches_wonly_tc"),
             "causal_flash_attention_tc": (causal_attention, "launches_tc"),
@@ -1026,7 +1120,7 @@ def profile_job(pipe, job, wall_s: float) -> None:
     busy = sum(r[0] for r in rows)
     log(f"   profile: device busy {busy:.2f} ms = {100 * busy / (wall_s * 1e3):.1f}% of the "
         f"{wall_s * 1e3:.2f} ms pass (profiled pass {wall_ms:.2f} ms), by kernel:")
-    for ms, n, key in rows[:12]:
+    for ms, n, key in rows[:20]:
         log(f"      {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
 
 
@@ -1155,10 +1249,10 @@ def expect_launches(counts: dict, name: str, want: int, label: str) -> None:
         fail(f"{label}: {name} launched {counts[name]} times, expected {want}")
 
 
-# Launches per layer of each attention route's kernels, in bf16 (where K7, K8
-# and K10 run their tensor-core variants).
+# Launches per layer of each attention route's kernels, in bf16 (where K1, K7,
+# K8 and K10 run their tensor-core variants).
 ROUTE_KERNELS = {
-    "flash": {"flash_disentangled_attention": 1},
+    "flash": {"flash_disentangled_attention": 1, "flash_disentangled_attention_tc": 1},
     "bias": {"abs_pos_table": 2, "bias_fused_attention": 1, "bias_fused_attention_tc": 1},
     "row": {"row_disentangled_attention": 1, "row_disentangled_attention_tc": 1},
     "tiled": {"windowed_pos_tables": 2, "tiled_attention": 1, "tiled_attention_tc": 1},
@@ -1284,9 +1378,9 @@ def route_measurement(cfg, qparams, tok, rng: np.random.Generator, dev) -> dict:
 
 ROUTES = ("flash", "bias", "row", "tiled")
 # The 512 bucket at five batches, the 128 bucket at two, and the main job's
-# two full short-text forwards, [128, 56] and [128, 88].
+# short-text forwards: [128, 56], [128, 88], [128, 72], [64, 56], [32, 72].
 FOUR_ROUTE_SHAPES = ((128, 512), (64, 512), (32, 512), (16, 512), (8, 512), (128, 128), (32, 128), (128, 56),
-                     (128, 88))
+                     (128, 88), (128, 72), (64, 56), (32, 72))
 
 
 def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> dict:
@@ -1321,8 +1415,8 @@ def four_routes(cfg, qparams, tok, job_dict, rng: np.random.Generator, dev) -> d
     for r in ROUTES[1:]:
         engines[r] = InferenceEngine(cfg, engines["flash"].params, dataclasses.replace(rt, attn_route=r), device=dev)
     texts = {512: make_job(rng, 0, 128), 128: make_job(rng, 128, 0)}
-    # Short texts cut to fill the 56 and 88 buckets (8 labels take 19 tokens).
-    for S, n_words in ((56, 30), (88, 60)):
+    # Short texts cut to fill the 56, 88 and 72 buckets (8 labels take 19 tokens).
+    for S, n_words in ((56, 30), (88, 60), (72, 45)):
         jd = make_job(rng, 128, 0)
         texts[S] = dict(jd, texts=[" ".join(tx.split()[:n_words]) for tx in jd["texts"]])
     batches, inputs = {}, {}
@@ -1540,8 +1634,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     with phase("phase 2: kernels against their plain versions"):
         rec = {
-            "flash_disentangled_attention": check_attention(gen, dev),
-            "fused_ffn_w8a8": check_ffn(gen, dev, rng),
+            "flash_disentangled_attention": check_attention(gen, dev, args.seed),
+            "fused_ffn_w8a8": check_ffn(gen, dev, rng, args.seed),
             "int8_matmul": check_int8_matmul(gen, dev, rng, args.seed),
             # Generators of their own from here on, so that the gliclass-base
             # phases draw the same weights and job as before K4 and K5 came.
@@ -1577,11 +1671,22 @@ def main() -> int:
                                   "main path int8-dynamic", profile=True)
         n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_w8a8", bb.num_hidden_layers * n_fwd, "main path")
-        # The attention kernels of the route "auto" takes at each forward's (rows, seq).
+        # Every K2 call of the path (H = 768, I = 3072) takes the tensor-core variant.
+        expect_launches(counts, "fused_ffn_w8a8_tc", counts["fused_ffn_w8a8"], "main path")
+        # The attention kernels of the route "auto" takes at each forward's
+        # (rows, seq), every K1 launch on tensor cores.
         expect_attention(counts, shapes, bb.num_hidden_layers, "main path")
+        from gliclass.c_tpu_torch.ops.fused_attention import attention_route
+
+        unchecked = sorted({(B, S) for B, S in shapes if attention_route(S, B, 64) == "flash"}
+                           - set(K1_SUMMED_SHAPES) - set(K1_MAIN_SHAPES))
+        if unchecked:
+            fail(f"main path: K1 ran at {unchecked}, which phase 2 did not hold against its plain version")
         launches["fused_ffn_w8a8"], paths["fused_ffn_w8a8"] = counts["fused_ffn_w8a8"], "gliclass-base int8-dynamic"
+        launches_tc["fused_ffn_w8a8"] = counts["fused_ffn_w8a8_tc"]
         if counts["flash_disentangled_attention"]:
             launches["flash_disentangled_attention"] = counts["flash_disentangled_attention"]
+            launches_tc["flash_disentangled_attention"] = counts["flash_disentangled_attention_tc"]
             paths["flash_disentangled_attention"] = "gliclass-base int8-dynamic"
 
     with phase("phase 4: gliclass-base weight-only int8"):
@@ -1618,6 +1723,7 @@ def main() -> int:
         launches_tc["tiled_attention"] = counts["tiled_attention_tc"]
         if "flash_disentangled_attention" not in launches:  # "auto" took no K1 on the main path
             launches["flash_disentangled_attention"] = counts["flash_disentangled_attention"]
+            launches_tc["flash_disentangled_attention"] = counts["flash_disentangled_attention_tc"]
             paths["flash_disentangled_attention"] = ("gliclass-base int8-dynamic classify_job, attn_route=tiled "
                                                      "(the buckets that are not multiples of 32)")
         torch.cuda.empty_cache()
@@ -1673,9 +1779,9 @@ def main() -> int:
         del qparams
 
     sources = {
-        "flash_disentangled_attention": ("gliclass/c_tpu_torch/csrc/flash_disentangled_attention.cu",
+        "flash_disentangled_attention": ("gliclass/c_tpu_torch/csrc/flash_disentangled_attention_tc.cu",
                                          "gliclass/c_tpu/ops/fused_attention.py:275"),
-        "fused_ffn_w8a8": ("gliclass/c_tpu_torch/csrc/fused_ffn_w8a8.cu", "gliclass/c_tpu/ops/fused_ffn.py:78"),
+        "fused_ffn_w8a8": ("gliclass/c_tpu_torch/csrc/fused_ffn_w8a8_tc.cu", "gliclass/c_tpu/ops/fused_ffn.py:78"),
         "int8_matmul": ("gliclass/c_tpu_torch/csrc/int8_matmul_tc.cu", "gliclass/c_tpu/ops/int8_matmul.py:35"),
         "fused_ffn_wonly": ("gliclass/c_tpu_torch/csrc/fused_ffn_wonly_tc.cu", "gliclass/c_tpu/ops/fused_ffn.py:91"),
         "causal_flash_attention": ("gliclass/c_tpu_torch/csrc/causal_flash_attention_tc.cu",
@@ -1700,12 +1806,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"], "path": paths[name],
         })
-        if "variant" in r:  # K3, K4, K5, K7, K8 and K10: the tensor-core variant's record
+        if "variant" in r:  # K1, K2, K3, K4, K5, K7, K8 and K10: the tensor-core variant's record
             kernels[-1].update(variant=r["variant"], launches_tc=launches_tc[name],
                                cuda_core_ms=r["cuda_core_ms"])
-        # K4 and K5: beside ms (through the wrapper), the C entry's time with
-        # its arguments built once and the profiler's device time; K5 also
-        # SDPA's device time.
+        # K2, K4 and K5: beside ms (through the wrapper), the C entry's time
+        # with its arguments built once and the profiler's device time; K5
+        # also SDPA's device time.
         kernels[-1].update({key: r[key] for key in ("entry_ms", "device_ms", "library_device_ms") if key in r})
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,10 +26,14 @@
 //
 // Numerics follow the TPU kernel: masked keys use a finite -1e30 (a key tile
 // that is wholly masked at the start of a row then gives exp(0) = 1 terms
-// that the first valid tile rescales by exp(-1e30 - m) = 0); the three terms
-// are summed before the scale; P is rounded to v's type before P.v; the
-// accumulator is fp32. Query rows whose own mask is 0 are computed like any
-// other (key-only mask).
+// that the first valid tile rescales by exp(-1e30 - m) = 0). Keys past S (the
+// last tile's padding) are -inf and weigh exactly 0, so a row with no valid
+// key gives the mean of v over its S keys, as the plain version does. The
+// three terms are summed before the scale; P is rounded to v's type before
+// P.v; the accumulator is fp32. Query rows whose own mask is 0 are computed
+// like any other (key-only mask).
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -163,8 +167,7 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int c = 0; c < 4; ++c) {
         const int jl = tc + 16 * c, j = j0 + jl;
         const float x = (s[a][c] + QP[il * LDW + jl - il + 63] + KP[jl * LDW + il - jl + 63]) * inv_scale;
-        const bool ok = j < S && mb[j] > 0;
-        s[a][c] = ok ? x : -1e30f;
+        s[a][c] = j >= S ? -INFINITY : mb[j] > 0 ? x : -1e30f;
         mx = fmaxf(mx, s[a][c]);
       }
       const float m_new = fmaxf(m[a], group16_max(mx));

@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the port's Hopper kernels (sm_90a): warp-level
-// bf16 mma.sync, ldmatrix, and cp.async 16-byte copies.
+// bf16 and s8 mma.sync, ldmatrix, and cp.async 16-byte copies.
 //
 // m16n8k16 fragments (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -43,6 +43,21 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A . B on one m16n8k32 tile, s8 inputs, exact s32 accumulators. The
+// fragments hold four s8 values a register where the bf16 ones hold two:
+//   A [16 x 32]: a[0] = A[g][4t..4t+3], a[1] = A[g+8][4t..4t+3], a[2], a[3]
+//     the same at k + 16; B [32 x 8]: b0 = B[4t..4t+3][g], b1 = B[16+4t..][g];
+//   C as for mma_bf16.
+// So ldmatrix reads both from [row][k] tiles (k innermost, 16 bytes a matrix
+// row) with the bf16 addressing: a k-step of 32 bytes is one of 16 bf16.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

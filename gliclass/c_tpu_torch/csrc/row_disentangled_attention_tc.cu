@@ -52,50 +52,21 @@
 // beyond S are zero, their scores -1e30, their p zero), masked keys at -1e30,
 // and a row with no valid key gives the mean of v over its S keys.
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "rel_attention_tc.cuh"
 
 namespace {
 
 using namespace gct;
-using bf16 = __nv_bfloat16;
+using namespace relatt;
 
-constexpr int D = 64;        // head dim
 constexpr int R = 64;        // query rows per block
 constexpr int KT = 64;       // keys per tile
-constexpr int WIN = 128;     // R + KT - 1 = 127 relative rows, padded
-constexpr int LDH = D + 8;   // bf16 shared rows: 144 bytes, ldmatrix conflict-free
 constexpr int BUF = (KT + 2 * WIN) * LDH;  // one stage buffer: k tile, c2p window, p2c window
 constexpr int THREADS = 256;
 constexpr int MAX_S = 512;
 
 // Scores, two stage buffers (later every v tile), the key mask.
 inline int smem_bytes(int S_pad) { return R * (S_pad + 4) * 4 + 2 * BUF * 2 + MAX_S * 4; }
-
-// dst[r][c] = row(r)[c] for r < NR, c < D (zeros where row(r) is null): cp.async
-// 16-byte copies when the rows allow (vec; `safe` is a readable address for
-// the zero-filled copies), else element by element.
-template <int NR, typename Row>
-__device__ __forceinline__ void stage(Row row, bool vec, const bf16* safe, bf16* dst) {
-  if (vec) {
-    for (int e = threadIdx.x; e < NR * D / 8; e += THREADS) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bf16* src = row(r);
-      cp_async16(dst + r * LDH + c, src ? src + c : safe, src != nullptr);
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < NR * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    const bf16* src = row(r);
-    dst[r * LDH + c] = src ? src[c] : __float2bfloat16(0.f);
-  }
-}
-
-// B fragments of two n8 tiles (rows n0..n0+15 of a [n][k] tile) at k-step ks.
-__device__ __forceinline__ void ld_b_pair(uint32_t r[4], const bf16* base, int n0, int ks, int lane) {
-  ldmatrix_x4(r, base + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 row_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -141,11 +112,11 @@ row_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
   // (cell (il, jl) takes w = jl - il + R - 1); p2c window row w holds relative
   // row i0 - j0 + S - KT + w (cell (il, jl) takes w = il - jl + KT - 1).
   const auto stage_tile = [&](int j0, bf16* buf) {
-    stage<KT>(rows(kb, j0), vec_qkv, kb, buf);
-    stage<WIN>(window(pk, j0 - i0 + S - R), vec_pos, pk, buf + KT * LDH);
-    stage<WIN>(window(pq, i0 - j0 + S - KT), vec_pos, pq, buf + (KT + WIN) * LDH);
+    stage<KT, THREADS>(rows(kb, j0), vec_qkv, kb, buf);
+    stage<WIN, THREADS>(window(pk, j0 - i0 + S - R), vec_pos, pk, buf + KT * LDH);
+    stage<WIN, THREADS>(window(pq, i0 - j0 + S - KT), vec_pos, pq, buf + (KT + WIN) * LDH);
   };
-  stage<R>(rows(qb, i0), vec_qkv, qb, Buf + BUF);  // q waits in buffer 1 until it is in registers
+  stage<R, THREADS>(rows(qb, i0), vec_qkv, qb, Buf + BUF);  // q waits in buffer 1 until it is in registers
   stage_tile(0, Buf);
   cp_async_commit();
   for (int j = threadIdx.x; j < S_pad; j += THREADS) Ms[j] = j < S && mb[j] > 0;
@@ -176,26 +147,16 @@ row_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
         mma_bf16(sqk[2 * np], qa[ks], bb[0], bb[1]);
         mma_bf16(sqk[2 * np + 1], qa[ks], bb[2], bb[3]);
       }
-#pragma unroll
-      for (int np = 0; np < 3; ++np) {  // c2p: the warp's window column tiles
-        ld_b_pair(bb, Wk, (base + 2 * np) * 8, ks, lane);
-        if (own(2 * np)) mma_bf16(c2p[2 * np], qa[ks], bb[0], bb[1]);
-        if (own(2 * np + 1)) mma_bf16(c2p[2 * np + 1], qa[ks], bb[2], bb[3]);
-      }
+      band_mma<3>(c2p, qa[ks], Wk, base, ks, lane, own);  // c2p: the warp's window column tiles
       ldmatrix_x4(ka, Ks + (m0 + (lane & 15)) * LDH + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 3; ++np) {  // p2c: the k strip against the same column tiles
-        ld_b_pair(bb, Wq, (base + 2 * np) * 8, ks, lane);
-        if (own(2 * np)) mma_bf16(p2c[2 * np], ka, bb[0], bb[1]);
-        if (own(2 * np + 1)) mma_bf16(p2c[2 * np + 1], ka, bb[2], bb[3]);
-      }
+      band_mma<3>(p2c, ka, Wq, base, ks, lane, own);  // p2c: the k strip against the same column tiles
     }
     __syncthreads();  // every read of this tile's buffer done
     if (tile + 1 == T) {
       // Both buffers are free: every v tile streams in behind the softmax,
       // one copy group each.
       for (int tt = 0; tt < T; ++tt) {
-        stage<KT>(rows(vb, tt * KT), vec_qkv, vb, Buf + tt * KT * LDH);
+        stage<KT, THREADS>(rows(vb, tt * KT), vec_qkv, vb, Buf + tt * KT * LDH);
         cp_async_commit();
       }
     }
@@ -208,30 +169,12 @@ row_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
         *reinterpret_cast<float2*>(Sc + (m0 + g + 8 * hh) * LDS + j0 + side * 32 + nt * 8 + 2 * t) =
             make_float2(sqk[nt][2 * hh], sqk[nt][2 * hh + 1]);
     __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < 6; ++nt) {
-      if (!own(nt)) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int il = m0 + g + 8 * (i >> 1), w = (base + nt) * 8 + 2 * t + (i & 1);
-        const int jl = w + il - (R - 1);
-        if (jl >= 0 && jl < KT) Sc[il * LDS + j0 + jl] += c2p[nt][i];
-      }
-    }
+    scatter_c2p<6>(c2p, m0, base, lane, own, [&](int il, int jl, float x) { Sc[il * LDS + j0 + jl] += x; });
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int jl = m0 + g + 8 * (i >> 1), j = j0 + jl;
-      const bool ok = Ms[j] != 0;
-#pragma unroll
-      for (int nt = 0; nt < 6; ++nt) {
-        if (!own(nt)) continue;
-        const int il = (base + nt) * 8 + 2 * t + (i & 1) + jl - (KT - 1);
-        if (il < 0 || il >= R) continue;
-        float* cell = Sc + il * LDS + j;
-        *cell = ok ? (*cell + p2c[nt][i]) * inv_scale : -1e30f;
-      }
-    }
+    scatter_p2c<6>(p2c, m0, base, lane, own, [&](int il, int jl, float x) {
+      float* cell = Sc + il * LDS + j0 + jl;
+      *cell = Ms[j0 + jl] != 0 ? (*cell + x) * inv_scale : -1e30f;
+    });
     if (tile + 1 < T) cp_async_wait<0>();
     __syncthreads();  // the next tile's buffer has landed; this tile's scores are whole
   }

@@ -21,6 +21,7 @@ from .config import GLiClassConfig, RuntimeConfig
 from .convert.params import params_from_numpy
 from .models.gliclass import gliclass_probs
 from .models.heads import check_head_supported
+from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
 from .tokenization import TokenizedBatch
 
@@ -116,6 +117,9 @@ class InferenceEngine:
         # "int8-dynamic" mirrors the reference's ONNX dynamic quantization.
         self._act_quant = rt.quant_mode == "int8-dynamic"
         params = _place(params, self.device)
+        if self._act_quant and self.device.type == "cuda":
+            # The [N, K] FFN weights that K2's tensor-core variant reads, made once.
+            params = add_nk_weights(params)
         if rt.fuse_qkv:
             params = fuse_qkv_params(params, cfg)
         self.params = params

@@ -34,9 +34,11 @@ from ..config import check_attn_route
 from . import _build
 
 # Kernel launches since the last reset (the main path's proof): K1, K6, K7,
-# K8, K9, K10; launches_bias, launches_row and launches_tiled count both
-# variants of K7, K8 and K10, the *_tc counters their tensor-core launches.
+# K8, K9, K10; launches, launches_bias, launches_row and launches_tiled count
+# both variants of K1, K7, K8 and K10, the *_tc counters their tensor-core
+# launches.
 launches = 0
+launches_flash_tc = 0
 launches_table = 0
 launches_bias = 0
 launches_row = 0
@@ -56,8 +58,8 @@ CUDA_CORE = "cuda-core"
 
 
 def kernel_variant(*dtypes) -> str:
-    """The variant of K7, K8 or K10 that takes inputs of these dtypes (q's,
-    and K7's biases' or K10's tables'): the bf16 tensor-core kernels
+    """The variant of K1, K7, K8 or K10 that takes inputs of these dtypes
+    (q's, and K7's biases' or K10's tables'): the bf16 tensor-core kernels
     (``*_tc.cu``) when all are bfloat16, else the CUDA-core kernels, which
     keep fp32's 1e-4 agreement (TF32 tensor cores could not) and the mixed
     types."""
@@ -127,32 +129,36 @@ def flash_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_
 
 
 def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
-    """Disentangled attention. q, k, v: [B, h, S, 64] (views with a unit last
-    stride and the same strides, e.g. head splits of a fused projection);
-    pos_k_rel, pos_q_rel: [h, 2S-1, 64]; attention_mask: [B, S] int32.
-    Returns [B, h, S, 64], laid out in memory as [B, S, h, 64] so that the
-    merge of heads back to [B, S, h*64] is free."""
+    """Disentangled attention, kernel K1. q, k, v: [B, h, S, 64] (views with a
+    unit last stride and the same strides, e.g. head splits of a fused
+    projection); pos_k_rel, pos_q_rel: [h, 2S-1, 64]; attention_mask: [B, S]
+    int32. Returns [B, h, S, 64], laid out in memory as [B, S, h, 64] so that
+    the merge of heads back to [B, S, h*64] is free. bf16 inputs launch the
+    tensor-core kernel, fp32 the CUDA-core one (:func:`kernel_variant`)."""
     if not q.is_cuda:
         return flash_disentangled_attention_plain(
             q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale
         )
-    global launches
+    global launches, launches_flash_tc
     name = "flash_disentangled_attention"
     B, h, S, d = q.shape
     _check_qkv(name, q, k, v, attention_mask)
-    if max(q.stride()[:3]) * B > 2**31 - 1:
-        raise ValueError(f"{name}: strides exceed 32 bits")
     _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
     _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
+    tc = kernel_variant(q.dtype) == TENSOR_CORE
+    if not tc and max(q.stride()[:3]) * B > 2**31 - 1:
+        raise ValueError(f"{name}: strides exceed 32 bits")
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
-    sb, sh, ss, _ = q.stride()
-    rc = _build.lib().gct_flash_disentangled_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, ss,
-        pos_k_rel.data_ptr(), pos_q_rel.data_ptr(), attention_mask.data_ptr(),
-        out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pos_k_rel.data_ptr(),
+            pos_q_rel.data_ptr(), attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale,
+            _build.stream_ptr(q))
+    if tc:
+        rc = _build.lib().gct_flash_disentangled_attention_tc(*args)
+    else:
+        rc = _build.lib().gct_flash_disentangled_attention(_DTYPE_CODES[q.dtype], *args)
     _build.check(rc, name)
     launches += 1
+    launches_flash_tc += tc
     return out.permute(0, 2, 1, 3)
 
 
@@ -472,37 +478,37 @@ def attention_route(S: int, B: int, head_dim: int, route: str = "auto", device=N
     return attention_route(S, B, head_dim, _auto_route(S, B))
 
 
-# (S, B) where chip_smoke.py's four-route phase measured one route faster
-# than the other three in both turns of two calls (see _auto_route).
-_AUTO_MEASURED = {(512, 128): "row", (512, 64): "row", (512, 32): "row", (512, 16): "row",
-                  (128, 128): "tiled", (88, 128): "row"}
+# (S, B) where chip_smoke.py's four-route phase measured a route other than
+# flash fastest by the rule in _auto_route's docstring.
+_AUTO_MEASURED = {(512, 8): "row"}
 
 
 def _auto_route(S: int, B: int) -> str:
     """The "auto" rule: the route measured fastest on the H100 at (S, B),
-    else row in the 512 bucket from 64 rows on, else K1. Whole gliclass-base
-    "int8-dynamic" forward, CUDA events (NVIDIA H100 80GB HBM3, 700.00 W).
+    else K1. Whole gliclass-base "int8-dynamic" forward, CUDA events
+    (NVIDIA H100 80GB HBM3, 700.00 W).
 
-    The four routes with K3, K7, K8 and K10 on tensor cores (chip_smoke.py's
-    four-route phase; flash, bias, row, tiled ms, each the median of two
-    turns in opposite orders; first measurement call, then second):
-    [128, 512] 470.1, 320.5, 310.2, 312.8 / 468.6, 319.1, 308.9, 311.2;
-    [64, 512] 242.1, 172.4, 161.1, 162.7 / 241.1, 171.7, 160.5, 162.0;
-    [32, 512] 128.1, 98.7, 87.1, 88.3 / 127.0, 97.7, 86.2, 87.0; [16, 512]
-    67.8, 59.6, 47.5, 48.0 / 67.1, 58.5, 46.1, 46.9; [8, 512] 44.8, 40.9,
-    34.0, 35.5 / 40.0, 39.8, 30.7, 38.5; [128, 128] 90.0, 82.6, 82.3, 79.4
-    / 89.3, 82.0, 80.1, 78.8; [32, 128] 39.2, 46.5, 38.0, 39.6 / 31.4, 34.4,
-    31.7, 32.5; [128, 56] 48.9, 55.8, 51.6, 47.4 / 42.2, 41.4, 40.1, 42.4;
-    [128, 88] 69.3, 60.7, 60.5, 69.4 / 68.9, 60.5, 60.0, 69.0. Row beat the
-    other three in both turns of both calls in the 512 bucket at 128, 64,
-    32 and 16 rows and at [128, 88], tiled at [128, 128]: these take that
-    route, and the 512 bucket from 64 rows on takes row where not measured.
-    With K7 on tensor cores the bias forward at [128, 512] fell from 445 ms
-    (the CUDA-core K7) to 320, still behind row's 310: K7 now takes less
-    time a layer than K8, but the tables and bias products that only the
-    bias route needs cost more than the gap. [128, 56] (tiled in both turns
-    of the first call, row in the second), [8, 512] (row in the second call
-    only) and [32, 128] (no winner) keep K1, as every shape not measured."""
-    if (S, B) in _AUTO_MEASURED:
-        return _AUTO_MEASURED[(S, B)]
-    return "row" if S == 512 and B >= 64 else "flash"
+    The four routes with K1, K3, K7, K8 and K10 on tensor cores, in four
+    runs of chip_smoke.py's four-route phase (two turns in opposite orders
+    each). A route takes a shape where it was faster than the other three in
+    both turns of two runs or more, and no other route was in any run. The
+    runs' wins in both turns, first to fourth:
+
+      1. flash [128|64|32|16, 512], [128, 128], [128, 56], [32, 72];
+         tiled [64, 56];
+      2. flash [128|64|32, 512], [128, 128], [128, 72]; row [8, 512];
+      3. flash [128|64|32, 512], [128, 128]; row [16, 512], [8, 512];
+      4. flash [128|64|32, 512], [128, 128], [128, 56], [128, 88];
+         row [128, 72]; tiled [32, 72].
+
+    So row takes [8, 512] (its median was also the lowest in all four runs:
+    flash, bias, row, tiled ms 32.6, 38.8, 32.4, 35.1 / 48.9, 48.9, 41.4,
+    46.7 / 30.7, 39.8, 28.5, 32.7 / 31.0, 34.4, 29.2, 30.0). Flash won
+    [128|64|32, 512] and [128, 128] in all four runs (e.g. [128, 512]
+    196.3, 226.7, 218.3, 219.2 in the first) and [128, 56] in two.
+    [16, 512], [128, 72] and [32, 72] went to two routes, [64, 56] and
+    [128, 88] to one route in one run, [32, 128] to none: these take K1, as
+    every shape not measured (the short shapes are host-bound, and their
+    turns moved by up to 2x within a run). Before K1 ran on tensor cores,
+    row won the 512 bucket and [128, 88], tiled [128, 128]."""
+    return _AUTO_MEASURED.get((S, B), "flash")

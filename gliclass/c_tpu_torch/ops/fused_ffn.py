@@ -2,9 +2,14 @@
 
 Routing (no environment switch), for INT8 weights in reduced precision:
 
-  * ``act_quant`` on (``int8-dynamic``): the fused w8a8 kernel K2
-    (``csrc/fused_ffn_w8a8.cu``) — the activated [M, I] intermediate stays on
-    chip, re-quantized to int8;
+  * ``act_quant`` on (``int8-dynamic``): the w8a8 kernel K2, the activated
+    intermediate re-quantized to int8 per row. With H and I multiples of 16
+    (:func:`kernel_variant`) its two products run on int8 tensor cores
+    (``csrc/fused_ffn_w8a8_tc.cu``, four launches through [M, I] fp32 and
+    int8 scratch) on [N, K] copies of the weights (:func:`nk_weight`, made
+    once by the engine: :func:`add_nk_weights`); other shapes take the fused
+    CUDA-core kernel (``csrc/fused_ffn_w8a8.cu``), which keeps the
+    intermediate on chip. Both give the same bits;
   * ``act_quant`` off (weight-only ``int8``): the weight-only kernel K4, the
     intermediate rounded to x's dtype as in the JAX package's
     ``_kernel_wonly``. With H and I multiples of 16 (:func:`kernel_variant`)
@@ -30,16 +35,17 @@ from .layers import act_quant_enabled, activation, gelu_tanh, int_mm, linear, ro
 
 Params = dict[str, Any]
 
-launches = 0  # K2 launches since the last reset (the main path's proof)
+launches = 0  # K2 calls since the last reset (the main path's proof), one per FFN on either variant
+launches_tc = 0  # the K2 calls among them that took the tensor-core variant
 launches_wonly = 0  # K4 calls since the last reset, one per FFN on either variant
 launches_wonly_tc = 0  # the K4 calls among them that took the tensor-core variant
 
 
 def kernel_variant(H: int, I: int) -> str:
-    """The variant of K4 (bf16 x) that takes an FFN of width H and
-    intermediate width I: the tensor-core kernel when both are multiples of
-    16 (K3′'s core: 16-byte copies of x, h and weight rows, 16-wide output
-    tiles), else the fused CUDA-core kernel."""
+    """The variant of K2 and K4 (bf16 x) that takes an FFN of width H and
+    intermediate width I: the tensor-core kernels when both are multiples of
+    16 (16-byte copies of x, h and weight rows, 16-wide output tiles), else
+    the fused CUDA-core kernels."""
     return TENSOR_CORE if H % 16 == 0 and I % 16 == 0 else CUDA_CORE
 
 
@@ -105,16 +111,68 @@ def _launch_ffn(entry: str, x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, M, H, I):
     return out
 
 
-def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
-    """Fused w8a8 FFN. x: [M, H] bf16; wq_up int8 [H, I]; s_up, b_up f32 [I];
-    wq_dn int8 [I, H]; s_dn, b_dn f32 [H]."""
+def nk_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """An INT8 weight [..., K, N] as the [..., N, K] copy K2's tensor-core
+    variant reads (k innermost: int8 mma.sync fragments hold four
+    consecutive k, and ldmatrix has no 8-bit transpose)."""
+    return w_q.transpose(-1, -2).contiguous()
+
+
+def add_nk_weights(params: Params) -> Params:
+    """``params`` with an [N, K] copy ("w_t", :func:`nk_weight`) beside each
+    INT8 weight of the encoder's FFN ([L, K, N] stacked), for K2's
+    tensor-core variant: 2 * H * I bytes a layer more on the device (56.6 MB
+    for gliclass-base). Other trees, and trees that hold the copies already,
+    are returned as they are."""
+    ffn = params.get("backbone", {}).get("layers", {}).get("ffn")
+    if not ffn or not all("w_q" in ffn.get(n, {}) and "w_t" not in ffn[n] for n in ("up", "down")):
+        return params
+    new_ffn = dict(ffn, **{n: dict(ffn[n], w_t=nk_weight(ffn[n]["w_q"])) for n in ("up", "down")})
+    layers = dict(params["backbone"]["layers"], ffn=new_ffn)
+    return dict(params, backbone=dict(params["backbone"], layers=layers))
+
+
+def w8a8_tc_args(x, wt_up, s_up, b_up, wt_dn, s_dn, b_dn, out):
+    """The arguments of K2's tensor-core C entry (checked tensors, ``out``
+    [M, H] bf16) with fresh scratch, and the scratch tensors, which must
+    outlive the call: x_q [M, H] and h_q [M, I] int8; h [M, I], s_x and s_h
+    [M] fp32 (s_h also holds h's row absmax between launches 2 and 3)."""
+    M, H = x.shape
+    I = wt_up.shape[0]
+    i8 = torch.empty(M * (H + I), dtype=torch.int8, device=x.device)
+    f32 = torch.empty(M * (I + 2), dtype=torch.float32, device=x.device)
+    h, s_x, s_h = f32.data_ptr(), f32.data_ptr() + 4 * M * I, f32.data_ptr() + 4 * (M * I + M)
+    args = (x.data_ptr(), wt_up.data_ptr(), s_up.data_ptr(), b_up.data_ptr(), wt_dn.data_ptr(), s_dn.data_ptr(),
+            b_dn.data_ptr(), i8.data_ptr(), s_x, h, i8.data_ptr() + M * H, s_h, out.data_ptr(), M, H, I,
+            _build.stream_ptr(x))
+    return args, (i8, f32)
+
+
+def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu", wt_up=None, wt_dn=None):
+    """Fused w8a8 FFN (K2). x: [M, H] bf16; wq_up int8 [H, I]; s_up, b_up f32
+    [I]; wq_dn int8 [I, H]; s_dn, b_dn f32 [H]; wt_up, wt_dn: their [N, K]
+    copies (:func:`nk_weight`), which the tensor-core variant reads and
+    requires (a CUDA x only). The variant by :func:`kernel_variant`."""
     if not x.is_cuda:
         return fused_ffn_w8a8_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
-    global launches
+    global launches, launches_tc
     args = (x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn)
     M, H, I = _check_ffn_args("fused_ffn_w8a8", *args, hidden_act)
-    out = _launch_ffn("gct_fused_ffn_w8a8", *args, M, H, I)
+    tc = kernel_variant(H, I) == TENSOR_CORE
+    if tc:
+        for arg, t, shape in (("wt_up", wt_up, (I, H)), ("wt_dn", wt_dn, (H, I))):
+            ok = t is not None and t.dtype == torch.int8 and tuple(t.shape) == shape
+            if not (ok and t.is_contiguous() and t.device == x.device):
+                raise ValueError(f"fused_ffn_w8a8: {arg} must be contiguous int8 {shape} on {x.device} (nk_weight)")
+        # 16-byte copies of x and weight rows: realign a view that starts off a 16-byte boundary.
+        x, wt_up, wt_dn = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, wt_up, wt_dn))
+        out = torch.empty_like(x)
+        entry_args, _scratch = w8a8_tc_args(x, wt_up, s_up, b_up, wt_dn, s_dn, b_dn, out)
+        _build.check(_build.lib().gct_fused_ffn_w8a8_tc(*entry_args), "gct_fused_ffn_w8a8_tc")
+    else:
+        out = _launch_ffn("gct_fused_ffn_w8a8", *args, M, H, I)
     launches += 1
+    launches_tc += tc
     return out
 
 
@@ -154,15 +212,18 @@ def fused_ffn(p_up: Params, p_down: Params, x: torch.Tensor, hidden_act: str,
     """y = act(x @ up) @ down for x [..., H] (routing in the module doc)."""
     quantized = "w_q" in p_up and "w_q" in p_down
     if quantized and compute_dtype != torch.float32:
-        kernel = fused_ffn_w8a8 if act_quant_enabled() else fused_ffn_wonly
         *lead, H = x.shape
         I = p_up["w_q"].shape[1]
-        y = kernel(
+        args = (
             x.reshape(-1, H).to(compute_dtype).contiguous(),
             p_up["w_q"], p_up["scale"].float(), _bias_f32(p_up, I, x),
             p_down["w_q"], p_down["scale"].float(), _bias_f32(p_down, H, x),
             hidden_act,
         )
+        if act_quant_enabled():
+            y = fused_ffn_w8a8(*args, wt_up=p_up.get("w_t"), wt_dn=p_down.get("w_t"))
+        else:
+            y = fused_ffn_wonly(*args)
         return y.reshape(*lead, H)
     # "gelu" is erf in fp32 and the tanh form in reduced precision (layers._gelu).
     h = activation(hidden_act)(linear(p_up, x, compute_dtype))

@@ -108,3 +108,28 @@ def test_kernel_route_matches_score_path():
     pair = mask.bool()[:, :, None] & mask.bool()[:, None, :]
     want = tdeb.score_attention(p, x, rel, pair, c2p, p2c, bb, torch.float32)
     _valid_rows_close(got.numpy()[:, None], want.numpy()[:, None], mask.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cpu_runs_plain_and_counts_nothing(dtype):
+    """On a CPU tensor K1's wrapper runs the plain version, whichever variant
+    the dtype would take on the card, and counts no launch of either."""
+    B, h, S, d = 2, 3, 10, 8
+    q, k, v, pk, pq, mask = (torch.from_numpy(a) for a in _inputs(7, B, h, S, d))
+    q, k, v, pk, pq = (x.to(dtype) for x in (q, k, v, pk, pq))
+    assert FA.kernel_variant(dtype) == (FA.TENSOR_CORE if dtype == torch.bfloat16 else FA.CUDA_CORE)
+    before = FA.launches, FA.launches_flash_tc
+    got = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, 4.0)
+    assert (FA.launches, FA.launches_flash_tc) == before
+    assert got.dtype == dtype and got.shape == (B, h, S, d)
+    assert torch.equal(got, FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 4.0))
+
+
+@pytest.mark.parametrize("S", [6, 13])
+def test_plain_row_without_valid_key_is_the_mean_of_v(S):
+    """A row whose keys are all masked weighs each of its S keys exp(0) = 1:
+    the mean of v, which the tensor-core K1 reproduces (keys past S weigh 0)."""
+    q, k, v, pk, pq, mask = (torch.from_numpy(a) for a in _inputs(8, 2, 3, S, 8))
+    mask[0] = 0
+    got = FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 4.0)
+    torch.testing.assert_close(got[0], v[0].mean(dim=1, keepdim=True).expand(3, S, 8), atol=1e-6, rtol=1e-6)

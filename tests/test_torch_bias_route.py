@@ -103,19 +103,14 @@ def test_attention_route_predicate():
         assert route(S, Bt, 64, "bias") == "bias"
     assert route(90, 4, 64, "bias") == "flash"
     assert route(96, 4, 12, "bias") == "flash"
-    # auto: the measured H100 rule (ops/fused_attention.py _auto_route): the
-    # route that beat the other three where it did (row in the 512 bucket at
-    # 16, 32, 64 and 128 rows and at [128, 88], tiled at [128, 128]), else
-    # row in the 512 bucket from 64 rows on, K1 elsewhere
-    for S in (56, 88, 128, 384, 1024, 2048):
-        for Bt in (1, 16, 64):
-            assert route(S, Bt, 64) == "flash", (S, Bt)
-    for S, want in ((56, "flash"), (72, "flash"), (88, "row"), (128, "tiled"), (384, "flash")):
-        assert route(S, 128, 64) == want, S
-    for Bt, want in ((1, "flash"), (8, "flash"), (16, "row"), (32, "row"), (64, "row"), (96, "row"), (128, "row"),
-                     (256, "row")):
-        assert route(512, Bt, 64) == want, Bt
-    assert route(512, 16, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
+    # auto: the measured H100 rule (ops/fused_attention.py _auto_route): with
+    # K1 on tensor cores row won [8, 512] in two measurement runs and no
+    # other route won it, so it takes row; every other shape takes K1
+    for S in (56, 72, 88, 128, 384, 512, 1024, 2048):
+        for Bt in (1, 8, 16, 32, 64, 128, 256):
+            assert route(S, Bt, 64) == ("row" if (S, Bt) == (512, 8) else "flash"), (S, Bt)
+    assert route(512, 8, 12) == "flash"  # the row kernel needs head_dim % 8 == 0
+    assert route(512, 16, 12) == "flash"
     # row (K8) and tiled (K9 + K10) where their kernels take the shape, else
     # K1; the runtime config accepts both
     for forced, ok, not_ok in (("row", (56, 512), (1024, 90)), ("tiled", (128, 2048), (56, 88))):

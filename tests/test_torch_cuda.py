@@ -44,17 +44,23 @@ def _attn_inputs(dev, B, h, S, dtype, seed):
     return q, k, v, pk, pq, mask
 
 
-# Every bucket of the bench's ladder, plus lengths off any tile boundary.
-@pytest.mark.parametrize("S", [1, 56, 72, 88, 100, 104, 120, 128, 130, 192, 200, 256, 384, 512])
+# Every bucket of the bench's ladder, plus lengths off any tile boundary and
+# two long ones; ragged, single-key and leading-masked rows (_attn_inputs: at
+# S > 70 the first key tile of row 3 is wholly masked). bf16 runs the
+# tensor-core variant, fp32 the CUDA-core one.
+@pytest.mark.parametrize("S", [1, 56, 72, 88, 100, 104, 120, 128, 130, 192, 200, 256, 384, 512, 1024, 2048])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_attention_kernel_matches_plain(dev, S, dtype, tol):
-    args = _attn_inputs(dev, 4, 3, S, dtype, S)
+    args = _attn_inputs(dev, 4, 3 if S <= 512 else 1, S, dtype, S)
     scale = math.sqrt(3 * 64)
+    FA.launches = FA.launches_flash_tc = 0
     got = FA.flash_disentangled_attention(*args, scale)
+    assert (FA.launches, FA.launches_flash_tc) == (1, int(dtype == torch.bfloat16))
     want = FA.flash_disentangled_attention_plain(*args, scale)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert got.permute(0, 2, 1, 3).is_contiguous()
 
 
 def test_attention_kernel_checks_inputs(dev):
@@ -76,15 +82,42 @@ def _ffn_args(dev, M, H, I, seed):
     return x, c(wu), c(su), bu, c(wd), c(sd), bd, "gelu"
 
 
-@pytest.mark.parametrize("M,H,I", [(1, 128, 256), (40, 128, 256), (300, 768, 3072)])
+def _nk(args):
+    """The [N, K] weights K2's tensor-core variant reads, as the engine makes them."""
+    return dict(wt_up=FF.nk_weight(args[1]), wt_dn=FF.nk_weight(args[4]))
+
+
+def _ffn_cuda_core(args):
+    """The CUDA-core K2's C entry on the wrapper's arguments (the wrapper
+    sends H, I multiples of 16 to tensor cores)."""
+    from gliclass.c_tpu_torch.ops import _build
+
+    x = args[0]
+    M, H = x.shape
+    out = torch.empty_like(x)
+    rc = _build.lib().gct_fused_ffn_w8a8(*(a.data_ptr() for a in args[:7]), out.data_ptr(), M, H,
+                                         args[1].shape[1], _build.stream_ptr(x))
+    _build.check(rc, "gct_fused_ffn_w8a8")
+    return out
+
+
+# Multiples of 16 (all of these) take the tensor-core variant, which must also
+# equal the CUDA-core K2 bit for bit: exact int32 sums and the same fp32
+# operations in the same order.
+@pytest.mark.parametrize("M,H,I", [(1, 128, 256), (40, 128, 256), (300, 768, 3072), (8192, 768, 3072),
+                                   (129, 32, 64), (1000, 768, 3072)])
 def test_ffn_kernel_matches_plain(dev, M, H, I):
     args = _ffn_args(dev, M, H, I, M)
-    got = FF.fused_ffn_w8a8(*args).float()
+    FF.launches = FF.launches_tc = 0
+    got = FF.fused_ffn_w8a8(*args, **_nk(args))
+    assert (FF.launches, FF.launches_tc) == (1, 1)
     want = FF.fused_ffn_w8a8_plain(*args).float()
+    cc = _ffn_cuda_core(args)
     torch.cuda.synchronize()
     # a few bf16 ulps of the output, plus a rare int8 re-quantization step
     tol = 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
-    assert (got - want).abs().max().item() <= tol
+    assert (got.float() - want).abs().max().item() <= tol
+    assert torch.equal(got, cc)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 8), (70, 96, 40), (300, 768, 2304)])
@@ -1060,3 +1093,148 @@ def test_classify_job_head_width_8_on_card(dev, compute_dtype, quant_mode):
             h_cpu = chip_smoke.hidden_states(InferenceEngine(cfg, params, cpu_rt, device="cpu"), batch)
             rel = ((h_card[valid] - h_cpu[valid]).norm() / h_cpu[valid].norm()).item()
             assert rel <= (1e-5 if compute_dtype == "float32" else 5e-2), (route, cpu_route, rel)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variants of K1 and K2 (csrc/flash_disentangled_attention_tc.cu,
+# csrc/fused_ffn_w8a8_tc.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [56, 88, 512])
+def test_flash_tc_kernel_head_split_views(dev, S):
+    """q/k/v as head views of one fused [B, S, 3H] projection (the model's
+    layout, 16-byte aligned rows: cp.async copies) against contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    B, h = 3, 12
+    qkv = torch.randn(B, S, 3 * h * 64, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * 64:(i + 1) * h * 64].reshape(B, S, h, 64).transpose(1, 2) for i in range(3))
+    pk, pq = (torch.randn(h, 2 * S - 1, 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+    mask[1, S // 3:] = 0
+    got = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    want = FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    same = FA.flash_disentangled_attention(*(x.contiguous() for x in (q, k, v)), pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got, same)
+
+
+def test_flash_tc_kernel_rows_not_16_byte_aligned(dev):
+    """bf16 q/k/v rows 65 elements apart and one element off alignment, and
+    relative tables one element off: the tensor-core K1's element loads."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    S = 96
+    q, k, v = (torch.randn(4, 3, S, 65, generator=g, device=dev).to(torch.bfloat16)[..., 1:] for _ in range(3))
+    flat = torch.randn(2 * 3 * (2 * S - 1) * 64 + 1, generator=g, device=dev).to(torch.bfloat16)
+    pk, pq = flat[1:].view(2, 3, 2 * S - 1, 64)
+    mask = torch.ones(4, S, dtype=torch.int32, device=dev)
+    mask[1, 40:] = 0
+    FA.launches_flash_tc = 0
+    got = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    assert FA.launches_flash_tc == 1
+    want = FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("S", [40, 100, 300])
+def test_flash_tc_kernel_row_without_valid_key_is_the_mean_of_v(dev, S):
+    """Masked keys weigh 2^0 = 1 each at the running max -1e30 and keys past S
+    exactly 0, so a row with no valid key gives the mean of v over its S keys,
+    as the plain version does."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, S, torch.bfloat16, S)
+    mask[0] = 0
+    got = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    want = FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert (got[0].float() - v[0].float().mean(dim=1, keepdim=True)).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("S", [40, 100, 300])
+def test_flash_kernel_row_without_valid_key_is_the_mean_of_v(dev, S):
+    """The CUDA-core K1 (fp32) weighs keys past S exactly 0 as the
+    tensor-core one does: a row with no valid key gives the mean of v over
+    its S keys, as the plain version does."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, S, torch.float32, S)
+    mask[0] = 0
+    FA.launches = FA.launches_flash_tc = 0
+    got = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, 8.0)
+    assert (FA.launches, FA.launches_flash_tc) == (1, 0)
+    want = FA.flash_disentangled_attention_plain(q, k, v, pk, pq, mask, 8.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert (got[0] - v[0].mean(dim=1, keepdim=True)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, 1), (torch.float32, 0)])
+def test_flash_variant_launch_counters(dev, dtype, tc):
+    """Every K1 launch counts in launches, only bf16 ones in launches_flash_tc."""
+    args = _attn_inputs(dev, 4, 3, 72, dtype, 9)
+    FA.launches = FA.launches_flash_tc = 0
+    got = FA.flash_disentangled_attention(*args, 8.0)
+    assert (FA.launches, FA.launches_flash_tc) == (1, tc)
+    assert FA.kernel_variant(dtype) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
+    want = FA.flash_disentangled_attention_plain(*args, 8.0)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= (2e-2 if tc else 1e-4)
+
+
+@pytest.mark.parametrize("H,I,tc", [(768, 3072, 1), (128, 256, 1), (100, 196, 0), (96, 200, 0)])
+def test_ffn_variant_launch_counters(dev, H, I, tc):
+    """Every K2 call counts once in launches (the tensor-core variant's four
+    launches too), only those with H and I multiples of 16 in launches_tc."""
+    args = _ffn_args(dev, 70, H, I, H + I + 1)
+    FF.launches = FF.launches_tc = 0
+    got = FF.fused_ffn_w8a8(*args, **(_nk(args) if tc else {}))
+    assert (FF.launches, FF.launches_tc) == (1, tc)
+    assert FF.kernel_variant(H, I) == (FA.TENSOR_CORE if tc else FA.CUDA_CORE)
+    want = FF.fused_ffn_w8a8_plain(*args).float()
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+
+
+def test_ffn_tc_kernel_takes_engine_weights_and_realigns_a_view(dev):
+    """The engine's [N, K] weights (slices of stacked [L, N, K] copies) give
+    the same bits as copies made in the call; x rows starting 2 bytes off a
+    16-byte boundary are copied."""
+    x, wu, su, bu, wd, sd, bd, act = _ffn_args(dev, 40, 128, 256, 6)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    xv = flat[1:].view(40, 128)
+    wts = FF.nk_weight(torch.stack([wu.flip(0), wu])), FF.nk_weight(torch.stack([wd.flip(0), wd]))
+    got = FF.fused_ffn_w8a8(xv, wu, su, bu, wd, sd, bd, act, wt_up=wts[0][1], wt_dn=wts[1][1])
+    want = FF.fused_ffn_w8a8(x, wu, su, bu, wd, sd, bd, act, wt_up=FF.nk_weight(wu), wt_dn=FF.nk_weight(wd))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="wt_up"):
+        FF.fused_ffn_w8a8(x, wu, su, bu, wd, sd, bd, act, wt_up=wu, wt_dn=FF.nk_weight(wd))
+
+
+def test_ffn_tc_kernel_requires_nk_weights(dev):
+    """The tensor-core K2 reads only the [N, K] copies: without them it
+    raises, and launches nothing."""
+    args = _ffn_args(dev, 40, 128, 256, 8)
+    FF.launches = FF.launches_tc = 0
+    with pytest.raises(ValueError, match="wt_up"):
+        FF.fused_ffn_w8a8(*args)
+    with pytest.raises(ValueError, match="wt_dn"):
+        FF.fused_ffn_w8a8(*args, wt_up=FF.nk_weight(args[1]))
+    assert (FF.launches, FF.launches_tc) == (0, 0)
+
+
+def test_engine_int8_dynamic_adds_nk_weights_on_card(dev):
+    """An int8-dynamic engine on the card holds the [N, K] FFN weights K2's
+    tensor-core variant reads; an int8 one does not."""
+    rng = np.random.default_rng(1)
+    L, H, I = 2, 128, 256
+    params = quantize_tree({"backbone": {"layers": {"ffn": {
+        "up": {"w": rng.normal(0, 0.05, (L, H, I)).astype(np.float32)},
+        "down": {"w": rng.normal(0, 0.05, (L, I, H)).astype(np.float32)}}}}})
+    bb = BackboneConfig(hidden_size=H, num_hidden_layers=L, num_attention_heads=2, intermediate_size=I)
+    cfg = GLiClassConfig(hidden_size=H, class_token_index=7, backbone=bb)
+    for mode, added in (("int8-dynamic", True), ("int8", False)):
+        eng = InferenceEngine(cfg, params, RuntimeConfig(compute_dtype="bfloat16", quant_mode=mode))
+        ffn = eng.params["backbone"]["layers"]["ffn"]
+        assert ("w_t" in ffn["up"]) == added and ("w_t" in ffn["down"]) == added
+        if added:
+            assert torch.equal(ffn["up"]["w_t"], ffn["up"]["w_q"].transpose(1, 2))
+            assert ffn["down"]["w_t"].shape == (L, H, I) and ffn["down"]["w_t"].is_contiguous()

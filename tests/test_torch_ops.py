@@ -370,3 +370,95 @@ def test_fused_ffn_routes_match_jax(mode):
         # sum order can move one int8 (w8a8) or bf16 (weight-only) step of
         # the intermediate: a few bf16 ulps of the output.
         np.testing.assert_allclose(_np(got), _np(want), atol=8 * BF16_RTOL * np.abs(_np(want)).max())
+
+
+@pytest.mark.parametrize("with_nk", [False, True])
+def test_fused_ffn_w8a8_cpu_runs_plain_and_counts_nothing(with_nk):
+    """bf16 x at widths the tensor-core K2 takes: on a CPU tensor the wrapper
+    runs the plain version (the [N, K] weights, given or not, unused) and
+    counts no call of either variant."""
+    rng = np.random.default_rng(14)
+    M, H, I = 5, 32, 64
+    x = _t(rng.normal(size=(M, H)), "bfloat16")
+    wu, su = (torch.from_numpy(a) for a in jq.quantize_weight(rng.normal(0, 0.05, (H, I)).astype(np.float32)))
+    wd, sd = (torch.from_numpy(a) for a in jq.quantize_weight(rng.normal(0, 0.05, (I, H)).astype(np.float32)))
+    bu, bd = _t(rng.normal(0, 0.05, I)), _t(rng.normal(0, 0.05, H))
+    args = (x, wu, su, bu, wd, sd, bd, "gelu")
+    nk = dict(wt_up=tffn.nk_weight(wu), wt_dn=tffn.nk_weight(wd)) if with_nk else {}
+    assert tffn.kernel_variant(H, I) == tfa.TENSOR_CORE
+    before = tffn.launches, tffn.launches_tc
+    got = tffn.fused_ffn_w8a8(*args, **nk)
+    assert (tffn.launches, tffn.launches_tc) == before
+    assert got.dtype == torch.bfloat16 and got.shape == (M, H)
+    assert torch.equal(got, tffn.fused_ffn_w8a8_plain(*args))
+
+
+def test_nk_weights_are_transposed_copies():
+    """nk_weight gives the [N, K] copy K2's tensor-core variant reads;
+    add_nk_weights puts one beside each stacked FFN weight and leaves the
+    rest of the tree, and trees without INT8 FFN weights, as they were."""
+    rng = np.random.default_rng(15)
+    L, H, I = 2, 16, 48
+    ffn = {n: tq.quantize_dense_param({"w": rng.normal(0, 0.05, shape).astype(np.float32),
+                                       "b": rng.normal(0, 0.05, shape[-1]).astype(np.float32)})
+           for n, shape in (("up", (L, H, I)), ("down", (L, I, H)))}
+    tree = {"backbone": {"layers": {"ffn": {n: _tree(p, torch.from_numpy) for n, p in ffn.items()}}},
+            "head": {"x": torch.zeros(1)}}
+    got = tffn.add_nk_weights(tree)
+    for n, (K, N) in (("up", (H, I)), ("down", (I, H))):
+        p = got["backbone"]["layers"]["ffn"][n]
+        assert p["w_t"].shape == (L, N, K) and p["w_t"].is_contiguous()
+        assert torch.equal(p["w_t"], p["w_q"].transpose(1, 2))
+        assert p["w_q"] is tree["backbone"]["layers"]["ffn"][n]["w_q"]
+        assert torch.equal(tffn.nk_weight(p["w_q"][1]), p["w_t"][1])
+    assert "w_t" not in tree["backbone"]["layers"]["ffn"]["up"] and got["head"] is tree["head"]
+    fp = {"backbone": {"layers": {"ffn": {"up": {"w": torch.zeros(H, I)}, "down": {"w": torch.zeros(I, H)}}}}}
+    assert tffn.add_nk_weights(fp) is fp
+    assert tffn.add_nk_weights({"backbone": {"layers": {}}}) == {"backbone": {"layers": {}}}
+
+
+def test_add_nk_weights_keeps_a_tree_that_has_them():
+    """A tree that holds the [N, K] copies already (an engine's tree passed
+    to another engine) is returned as it is: no second copy is made."""
+    rng = np.random.default_rng(18)
+    L, H, I = 2, 16, 32
+    ffn = {n: _tree(tq.quantize_dense_param({"w": rng.normal(0, 0.05, shape).astype(np.float32)}), torch.from_numpy)
+           for n, shape in (("up", (L, H, I)), ("down", (L, I, H)))}
+    tree = {"backbone": {"layers": {"ffn": ffn}}}
+    once = tffn.add_nk_weights(tree)
+    assert once is not tree and tffn.add_nk_weights(once) is once
+    ffn = once["backbone"]["layers"]["ffn"]
+    assert all(torch.equal(ffn[n]["w_t"], ffn[n]["w_q"].transpose(1, 2)) for n in ("up", "down"))
+
+
+def test_fused_ffn_route_ignores_nk_weights_on_cpu():
+    """fused_ffn on a tree that carries [N, K] copies (an engine's tree moved
+    to the CPU) gives the same bits as without them."""
+    rng = np.random.default_rng(16)
+    x = _t(rng.normal(size=(2, 8, 128)), "bfloat16")
+    up = _tree(jq.quantize_dense_param(_dense(rng, 128, 256)), lambda a: torch.from_numpy(np.asarray(a)))
+    dn = _tree(jq.quantize_dense_param(_dense(rng, 256, 128)), lambda a: torch.from_numpy(np.asarray(a)))
+    with tl.act_quant(True):
+        plain = tffn.fused_ffn(up, dn, x, "gelu", torch.bfloat16)
+        with_nk = tffn.fused_ffn(dict(up, w_t=tffn.nk_weight(up["w_q"])), dict(dn, w_t=tffn.nk_weight(dn["w_q"])),
+                                 x, "gelu", torch.bfloat16)
+    assert torch.equal(plain, with_nk)
+
+
+@pytest.mark.parametrize("quant_mode", ["int8-dynamic", "int8"])
+def test_engine_on_cpu_adds_no_nk_weights(quant_mode):
+    """Only an int8-dynamic engine on the card keeps [N, K] FFN copies (K2's
+    tensor-core variant); on the CPU the plain version needs none."""
+    from gliclass.c_tpu_torch.config import BackboneConfig, GLiClassConfig, RuntimeConfig
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+
+    rng = np.random.default_rng(17)
+    params = jq.quantize_tree({"backbone": {"layers": {"ffn": {
+        "up": {"w": rng.normal(0, 0.05, (2, 32, 64)).astype(np.float32)},
+        "down": {"w": rng.normal(0, 0.05, (2, 64, 32)).astype(np.float32)}}}}})
+    bb = BackboneConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64)
+    cfg = GLiClassConfig(hidden_size=32, class_token_index=7, backbone=bb)
+    eng = InferenceEngine(cfg, params, RuntimeConfig(compute_dtype="bfloat16", quant_mode=quant_mode), device="cpu")
+    ffn = eng.params["backbone"]["layers"]["ffn"]
+    assert "w_t" not in ffn["up"] and "w_t" not in ffn["down"]
+    assert ffn["up"]["w_q"].dtype == torch.int8

@@ -22,10 +22,12 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    asserted by their counters) and their CUDA-core variants on fp32, mixed
    types and the other shapes; the CUDA-core variants are timed on the bf16
    inputs too, and K2's tensor-core variant must equal its CUDA-core one bit
-   for bit. Every kernel's time is taken through its wrapper; K2, K4 and K5
-   also give their tensor-core C entry's time with the arguments built once
-   and the profiler's device time (K5 SDPA's too); K1 is also timed alone at
-   the four shapes the main path sends it.
+   for bit. Every kernel's time is taken through its wrapper; K2, K4, K5, K6
+   and K9 also give their (tensor-core) C entry's time with the arguments
+   built once and the profiler's device time (K5 SDPA's too); K1 is also
+   timed alone at the four shapes the main path sends it, K6 at S = 56, 72,
+   88, 128 and 512 (held exact at each, fp32 and bf16). K6 and K9 are also
+   held exact on a table that starts one element past a 16-byte boundary.
 3. DeBERTa main path, full width: gliclass-base (DeBERTa-v3-base, 12 layers,
    H=768, vocab 128,100) with random weights made from --seed,
    INT8-quantized, run through ZeroShotClassificationPipeline.classify_job
@@ -61,7 +63,7 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    "bias", warmed up), 16 client threads posting 256 requests over HTTP;
    each answered once, scores against classify_job, K6/K7 launches per
    forward (K7 on tensor cores), /metrics latency percentiles and
-   requests/s.
+   requests/s, the device's busy share and top kernels under the profiler.
 8. Decoder main path, full width and depth: gliclass-qwen-1.5B (Qwen2-1.5B,
    28 layers, H=1536, 12 query / 2 kv heads, d=128, I=8960, vocab 151,936),
    random INT8 weights made layer by layer, "int8-dynamic" through
@@ -595,38 +597,65 @@ def check_causal(gen: torch.Generator, dev) -> dict:
                 shape="sum of B=64 S=128, B=16 S=512 (nkv=2 g=6 d=128 bf16)")
 
 
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor that starts one element past a
+    16-byte boundary (the kernels' element-wise paths)."""
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    u.copy_(t)
+    if u.data_ptr() % 16 == 0:
+        fail("unaligned_copy: the copy is 16-byte aligned")
+    return u
+
+
+def check_copy(name: str, label: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """A copy of values: the kernel must equal its plain version exactly."""
+    torch.cuda.synchronize()
+    same = out.shape == ref.shape and torch.equal(out, ref)
+    err = (out.float() - ref.float()).abs().max().item() if out.shape == ref.shape else float("inf")
+    log(f"{name} {label}: {'equal' if same else 'DIFFERENT'} to its plain version (max|diff| {err:.3e}, "
+        "tol 0: exact)")
+    if not same:
+        fail(f"{name} {label}: kernel differs from its plain version")
+    return err
+
+
 def check_abs_pos_table(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import fused_attention as FA
 
     h, d = 12, 64
-    rec = None
-    for S in (88, 128, 512):
+    rec, by_shape = None, {}
+    for S in (56, 72, 88, 128, 512):  # the serve path's buckets (56, 72, 88, 512) and the route phase's 128
         for dtype in (torch.float32, torch.bfloat16):
             pos = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
-            out = FA.abs_pos_table(pos, S)
-            ref = FA.abs_pos_table_plain(pos, S)
-            torch.cuda.synchronize()
-            # A copy of values: the kernel must equal the gather exactly.
-            same = out.shape == ref.shape and torch.equal(out, ref)
-            err = 0.0 if same else float("inf")
-            if out.shape == ref.shape:
-                err = (out.float() - ref.float()).abs().max().item()
-            log(f"K6 abs_pos_table h={h} S={S} d={d} {str(dtype)[6:]}: "
-                f"{'equal' if same else 'DIFFERENT'} to its plain version (max|diff| {err:.3e}, tol 0: exact)")
-            if not same:
-                fail(f"K6 S={S} {dtype}: kernel differs from its plain version")
-            if S != 512 or dtype != torch.bfloat16:
+            label = f"abs_pos_table h={h} S={S} d={d} {str(dtype)[6:]}"
+            err = check_copy("K6", label, FA.abs_pos_table(pos, S), FA.abs_pos_table_plain(pos, S))
+            if S == 128:  # pos_rel one element past a 16-byte boundary: element-wise staging loads
+                check_copy("K6", label + " unaligned", FA.abs_pos_table(unaligned_copy(pos), S),
+                           FA.abs_pos_table_plain(pos, S))
+            if dtype != torch.bfloat16:
                 continue
+            # Through the wrapper, as every kernel of the line; beside it the C
+            # entry with its arguments and output built once, and the
+            # profiler's device time.
             idx = FA.rel_index(S, dev)
-            ms = time_ms(lambda: FA.abs_pos_table(pos, S))
-            plain = time_ms(lambda: FA.abs_pos_table_plain(pos, S), iters=10)
+            out = torch.empty(h, S, d, S, dtype=dtype, device=dev)
+            c_args = (1, pos.data_ptr(), out.data_ptr(), h, S, d, _build.stream_ptr(pos))
+            entry_fn = lambda: _build.check(_build.lib().gct_abs_pos_table(*c_args), "gct_abs_pos_table")
+            ms, entry, dms = time_ms(lambda: FA.abs_pos_table(pos, S)), time_ms(entry_fn), device_ms(entry_fn)
             lib = time_ms(lambda: pos[:, idx])  # one gather, [h, S, S, d] layout
             nbytes = h * (2 * S - 1) * d * 2 + h * S * S * d * 2
             bms, by = bound_ms(0.0, "bf16", nbytes)
-            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | pos_rel[:, idx] {lib:.4f} ms | "
-                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
-            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
-                       shape=f"one table, h={h} S={S} d={d} bf16")
+            log(f"   time: kernel {ms:.4f} ms (C entry {entry:.4f} ms, device {fmt_ms(dms)}) | "
+                f"pos_rel[:, idx] {lib:.4f} ms | bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+            if S != 512:
+                by_shape[f"S={S}"] = dict(ms=ms, entry_ms=entry, device_ms=dms, library_ms=lib, bound_ms=bms)
+                continue
+            plain = time_ms(lambda: FA.abs_pos_table_plain(pos, S), iters=10)
+            log(f"   plain {plain:.4f} ms")
+            rec = dict(ms=ms, entry_ms=entry, device_ms=dms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=by, max_abs_err=err, shape=f"one table, h={h} S={S} d={d} bf16")
+    rec["by_shape"] = by_shape
     return rec
 
 
@@ -841,6 +870,7 @@ def check_row_attention(gen: torch.Generator, dev) -> dict:
 
 
 def check_windowed_pos_table(gen: torch.Generator, dev) -> dict:
+    from gliclass.c_tpu_torch.ops import _build
     from gliclass.c_tpu_torch.ops import fused_attention as FA
 
     h, d, blk = 12, 64, FA.TILED_BLK
@@ -848,28 +878,26 @@ def check_windowed_pos_table(gen: torch.Generator, dev) -> dict:
     for S in (128, 512):
         for dtype in (torch.float32, torch.bfloat16):
             pos = torch.randn(h, 2 * S - 1, d, generator=gen, device=dev).to(dtype)
-            out = FA.windowed_pos_tables(pos, blk)
-            ref = FA.windowed_pos_tables_plain(pos, blk)
-            torch.cuda.synchronize()
-            # A copy of values: the kernel must equal the gather exactly.
-            same = out.shape == ref.shape and torch.equal(out, ref)
-            err = (out.float() - ref.float()).abs().max().item() if out.shape == ref.shape else float("inf")
-            log(f"K9 windowed_pos_tables h={h} S={S} blk={blk} d={d} {str(dtype)[6:]}: "
-                f"{'equal' if same else 'DIFFERENT'} to its plain version (max|diff| {err:.3e}, tol 0: exact)")
-            if not same:
-                fail(f"K9 S={S} {dtype}: kernel differs from its plain version")
+            label = f"windowed_pos_tables h={h} S={S} blk={blk} d={d} {str(dtype)[6:]}"
+            err = check_copy("K9", label, FA.windowed_pos_tables(pos, blk), FA.windowed_pos_tables_plain(pos, blk))
+            if S == 128:  # pos_rel one element past a 16-byte boundary: element-wise staging loads
+                check_copy("K9", label + " unaligned", FA.windowed_pos_tables(unaligned_copy(pos), blk),
+                           FA.windowed_pos_tables_plain(pos, blk))
             if S != 512 or dtype != torch.bfloat16:
                 continue
             idx = FA._win_index(S, blk, dev).reshape(-1)
-            ms = time_ms(lambda: FA.windowed_pos_tables(pos, blk))
+            out = torch.empty(h, 2 * (S // blk) - 1, blk, blk, d, dtype=dtype, device=dev)
+            c_args = (1, pos.data_ptr(), out.data_ptr(), h, S, d, blk, _build.stream_ptr(pos))
+            entry_fn = lambda: _build.check(_build.lib().gct_windowed_pos_table(*c_args), "gct_windowed_pos_table")
+            ms, entry, dms = time_ms(lambda: FA.windowed_pos_tables(pos, blk)), time_ms(entry_fn), device_ms(entry_fn)
             plain = time_ms(lambda: FA.windowed_pos_tables_plain(pos, blk), iters=10)
             lib = time_ms(lambda: torch.index_select(pos, 1, idx))  # one gather, [h, w*x*y, d]
             nbytes = h * (2 * S - 1) * d * 2 + out.numel() * 2
             bms, by = bound_ms(0.0, "bf16", nbytes)
-            log(f"   time: kernel {ms:.4f} ms | plain {plain:.4f} ms | index_select {lib:.4f} ms | "
-                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
-            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
-                       shape=f"one table, h={h} S={S} blk={blk} d={d} bf16")
+            log(f"   time: kernel {ms:.4f} ms (C entry {entry:.4f} ms, device {fmt_ms(dms)}) | plain {plain:.4f} ms "
+                f"| index_select {lib:.4f} ms | bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+            rec = dict(ms=ms, entry_ms=entry, device_ms=dms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=by, max_abs_err=err, shape=f"one table, h={h} S={S} blk={blk} d={d} bf16")
     return rec
 
 
@@ -1558,14 +1586,16 @@ def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, 
     with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=30) as resp:
         metrics = json.loads(resp.read())
     # The same traffic again under the profiler (device activity only), for
-    # the device's busy share; latencies and counts come from the pass above.
+    # the device's busy share and its top kernels; latencies and counts come
+    # from the pass above.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_prof = drive()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
     server.close()
     n_req = n_threads * per_thread
     if len(answers) != n_req:
@@ -1580,6 +1610,11 @@ def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, 
         f"launches {json.dumps(counts)}")
     log(f"   profiled pass of the same traffic: {wall_prof:.3f} s, device busy {busy:.3f} s "
         f"= {100 * busy / wall_prof:.1f}%" if busy else "   profile: no device time recorded (not measured)")
+    for ms, n, key in rows[:10]:
+        log(f"      {ms:9.3f} ms  {100 * ms / (busy * 1e3):5.1f}%  x{n:<5d} {key[:90]}")
+    k6 = [(ms, n) for ms, n, key in rows if "abs_pos_table_kernel" in key]
+    if k6:
+        log(f"   K6 in the profiled pass: {sum(r[0] for r in k6):.3f} ms over {sum(r[1] for r in k6)} launches")
     if metrics["requests"] != n_req or metrics["errors"] != 0:
         fail(f"serve path: /metrics counts {metrics['requests']} requests, {metrics['errors']} errors")
     if long_rows <= 16:
@@ -1809,10 +1844,12 @@ def main() -> int:
         if "variant" in r:  # K1, K2, K3, K4, K5, K7, K8 and K10: the tensor-core variant's record
             kernels[-1].update(variant=r["variant"], launches_tc=launches_tc[name],
                                cuda_core_ms=r["cuda_core_ms"])
-        # K2, K4 and K5: beside ms (through the wrapper), the C entry's time
-        # with its arguments built once and the profiler's device time; K5
-        # also SDPA's device time.
-        kernels[-1].update({key: r[key] for key in ("entry_ms", "device_ms", "library_device_ms") if key in r})
+        # K2, K4, K5, K6 and K9: beside ms (through the wrapper), the C
+        # entry's time with its arguments built once and the profiler's
+        # device time; K5 also SDPA's device time; K6 the same times at the
+        # short buckets.
+        kernels[-1].update({key: r[key] for key in ("entry_ms", "device_ms", "library_device_ms", "by_shape")
+                            if key in r})
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

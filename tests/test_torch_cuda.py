@@ -413,22 +413,45 @@ def test_decoder_engine_on_card_matches_cpu_and_uses_the_kernels(dev):
 # The bias route: K6 (tables), K7 (softmax over biases), and the route as a
 # whole against K1.
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("S", [1, 56, 72, 88, 100, 128, 130, 192, 256, 384, 512, 1024, 2048])
+# S = 1024, 1030 and 2048 span more than one block of key columns; S not a
+# multiple of 8 (bf16) or 4 (fp32) takes the element-wise store path.
+@pytest.mark.parametrize("S", [1, 56, 72, 88, 100, 128, 130, 192, 256, 384, 512, 1024, 1030, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_abs_pos_table_kernel_equals_plain(dev, S, dtype):
     g = torch.Generator(device=dev).manual_seed(S)
     pos = torch.randn(3 if S <= 512 else 1, 2 * S - 1, 64, generator=g, device=dev).to(dtype)
+    FA.launches_table = 0
     got = FA.abs_pos_table(pos, S)
+    assert FA.launches_table == 1
     want = FA.abs_pos_table_plain(pos, S)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.equal(got, want)  # a copy of values: exact
 
 
-@pytest.mark.parametrize("d", [8, 128])
-def test_abs_pos_table_kernel_other_widths(dev, d):
-    g = torch.Generator(device=dev).manual_seed(d)
-    pos = torch.randn(2, 2 * 130 - 1, d, generator=g, device=dev)
-    assert torch.equal(FA.abs_pos_table(pos, 130), FA.abs_pos_table_plain(pos, 130))
+@pytest.mark.parametrize("S", [7, 100, 130])
+@pytest.mark.parametrize("d", [6, 8, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abs_pos_table_kernel_other_widths(dev, S, d, dtype):
+    """d = 6 is no whole number of 16-byte vectors (element-wise staging)."""
+    g = torch.Generator(device=dev).manual_seed(S * d)
+    pos = torch.randn(2, 2 * S - 1, d, generator=g, device=dev).to(dtype)
+    assert torch.equal(FA.abs_pos_table(pos, S), FA.abs_pos_table_plain(pos, S))
+
+
+def _unaligned(dev, shape, dtype, seed):
+    """A contiguous table that starts one element past a 16-byte boundary."""
+    n = math.prod(shape)
+    pos = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+    pos.copy_(torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev))
+    assert pos.is_contiguous() and pos.data_ptr() % 16 != 0
+    return pos
+
+
+@pytest.mark.parametrize("S", [88, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abs_pos_table_kernel_unaligned_input(dev, S, dtype):
+    pos = _unaligned(dev, (3, 2 * S - 1, 64), dtype, S)
+    assert torch.equal(FA.abs_pos_table(pos, S), FA.abs_pos_table_plain(pos, S))
 
 
 def _bias_inputs(dev, S, dtype, layout, seed):
@@ -601,7 +624,10 @@ def test_row_and_tiled_kernels_rows_not_16_byte_aligned(dev, dtype):
         assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("S,blk", [(32, 32), (64, 8), (88, 8), (128, 32), (512, 32), (512, 64), (2048, 32)])
+# blk = 1024: the rows a block shares exceed 48 KB, so it copies from pos_rel
+# directly.
+@pytest.mark.parametrize("S,blk", [(32, 32), (64, 8), (88, 8), (128, 32), (512, 32), (512, 64), (2048, 32),
+                                   (1024, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_windowed_table_kernel_equals_plain(dev, S, blk, dtype):
     g = torch.Generator(device=dev).manual_seed(S + blk)
@@ -619,6 +645,13 @@ def test_windowed_table_kernel_other_widths(dev, d):
     """d whose rows are not whole 16-byte vectors takes the elementwise copy."""
     pos = torch.randn(2, 2 * 96 - 1, d, generator=torch.Generator(device=dev).manual_seed(d), device=dev)
     assert torch.equal(FA.windowed_pos_tables(pos, 16), FA.windowed_pos_tables_plain(pos, 16))
+
+
+@pytest.mark.parametrize("S,blk", [(128, 32), (512, 32), (96, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_table_kernel_unaligned_input(dev, S, blk, dtype):
+    pos = _unaligned(dev, (3, 2 * S - 1, 64), dtype, S + blk)
+    assert torch.equal(FA.windowed_pos_tables(pos, blk), FA.windowed_pos_tables_plain(pos, blk))
 
 
 def test_windowed_table_kernel_checks_inputs(dev):

@@ -72,7 +72,25 @@ Phases, in order, each with its wall time; any failure exits non-zero:
 9. Llama-1.3B geometry at full width and 4 of its 24 layers (g=1, no q/k/v
    bias, vocab 32,000), "int8-dynamic", a small job; K5 launches (all on
    tensor cores) and agreement with the CPU.
-10. One JSON line of kernel records (all ten kernels), the card line, and
+10. Head features on gliclass-base at full width and depth (phase 3's
+    weights plus a scorer, BiLSTM and layer fuser drawn from the seed):
+    the combined head (weighted-dot scorer, BiLSTM, layer fuser) in
+    "int8-dynamic" and "int8" and the mlp scorer in "int8-dynamic", through
+    classify_job on 128 short texts and 8 of the 512 bucket; texts/s, a
+    profiled pass with the BiLSTM loop's device time, K1'/K2' (K3'/K4')
+    launches per layer and forward, card against CPU (bf16 0.15 on
+    probabilities, fp32 1e-4 relative L2).
+11. The DeBERTa conv stem at deberta-v2-xlarge's width (H=1536, 24 heads,
+    I=6144, 4 of its 24 layers) and a Llama-1.3B-geometry decoder (4 of 24
+    layers) with the layer fuser and the mlp scorer, "int8-dynamic" through
+    classify_job: card against CPU, launches; K1' and K2' at the xlarge
+    widths against their plain versions.
+12. Training on gliclass-base with the combined head, fp32 params, AdamW:
+    one fp32 step at [4, 64], card against CPU; 8 bf16 steps at [16, 128]
+    with accum_steps=2 on one batch (the loss must fall; step ms, tokens/s,
+    peak memory); no kernel launched, and a kernel wrapper refusing an input
+    that requires grad.
+13. One JSON line of kernel records (all ten kernels), the card line, and
     the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
@@ -1027,9 +1045,42 @@ def make_params(rng: np.random.Generator, bb, H_head: int) -> dict:
             "ffn": {"up": dense(H, I, (L,)), "down": dense(I, H, (L,)), "ln": ln(H, (L,))},
         },
     }
+    if bb.conv_kernel_size > 0:  # the conv stem, a [k, H, H] kernel (deberta-v2-xlarge)
+        backbone["conv"] = {"w": normal(bb.conv_kernel_size, H, H), "b": normal(H, std=0.01), "ln": ln(H)}
     proj = lambda: {"linear_1": dense(H_head, 4 * H_head), "linear_2": dense(4 * H_head, H_head)}
     head = {"text_projector": proj(), "classes_projector": proj()}
     return {"backbone": backbone, "head": head}
+
+
+def with_head_features(params: dict, cfg, rng: np.random.Generator) -> dict:
+    """``params`` with random parameters for cfg's scorer, BiLSTM and layer
+    fuser, in the JAX package's layout (fp32; ``quantize_tree`` makes the
+    scorer's products INT8 and leaves the BiLSTM and the fuser as they are)."""
+    H, L = cfg.hidden_size, cfg.backbone.num_hidden_layers
+
+    def normal(*shape, std=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def dense(d_in, d_out, std=0.02):
+        return {"w": normal(d_in, d_out, std=std), "b": normal(d_out, std=0.01)}
+
+    # The scorer's last product is wide (std 0.5), so that the logits spread
+    # over a few units.
+    head = dict(params["head"])
+    if cfg.scorer_type == "mlp":
+        head["scorer"] = {"mlp_1": dense(3 * H, H), "mlp_2": dense(H, 1, std=0.5)}
+    elif cfg.scorer_type == "weighted-dot":
+        head["scorer"] = {"proj_text": dense(H, 2 * H), "proj_label": dense(H, 2 * H),
+                          "mlp_1": dense(3 * H, H), "mlp_2": dense(H, 1, std=0.5)}
+    out = dict(params, head=head)
+    if cfg.use_lstm:
+        h = H // 2
+        direction = lambda: {"w_ih": normal(H, 4 * h, std=0.05), "w_hh": normal(h, 4 * h, std=0.05),
+                             "b": normal(4 * h, std=0.05)}
+        out["lstm"] = {"fwd": direction(), "bwd": direction()}
+    if cfg.squeeze_layers:
+        out["layers_fuser"] = {"weights": normal(L + 1, std=1.0)}
+    return out
 
 
 def make_decoder_params(rng: np.random.Generator, bb, H_head: int) -> dict:
@@ -1079,13 +1130,14 @@ def _stack(trees: list):
     return np.stack(trees)
 
 
+JOB_LABELS = ["politics", "sports", "business", "science", "health", "entertainment", "technology", "travel"]
+
+
 def make_job(rng: np.random.Generator, n_short: int, n_long: int) -> dict:
     words = [f"w{i}" for i in range(5000)] + ["market", "team", "vote", "virus", "film"]
-    labels = ["politics", "sports", "business", "science", "health",
-              "entertainment", "technology", "travel"]
     texts = [" ".join(rng.choice(words, size=int(rng.integers(20, 61)))) for _ in range(n_short)]
     texts += [" ".join(rng.choice(words, size=int(rng.integers(420, 460)))) for _ in range(n_long)]
-    return {"texts": texts, "labels": [labels], "same_labels": True,
+    return {"texts": texts, "labels": [JOB_LABELS], "same_labels": True,
             "classification_type": "multi-label"}
 
 
@@ -1123,11 +1175,12 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
-def profile_job(pipe, job, wall_s: float) -> None:
+def profile_job(pipe, job, wall_s: float, span: str | None = None) -> None:
     """Device time by kernel over one more classify_job pass (torch.profiler),
     and the device's busy share: the kernels' summed time (one stream, so
     they do not overlap) over ``wall_s``, the median wall time of the same
-    pass without the profiler."""
+    pass without the profiler. ``span``: a ``record_function`` range whose
+    kernels' device time is reported as a share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1137,9 +1190,11 @@ def profile_job(pipe, job, wall_s: float) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only: an operator's row repeats its kernels' time.
+    # (A record_function range also shows on the device timeline, as its span.)
+    avgs = prof.key_averages()
     rows = sorted(
-        ((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in prof.key_averages()
-         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
+        ((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in avgs
+         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0 and evt.key != span),
         reverse=True,
     )
     if not rows:
@@ -1150,6 +1205,16 @@ def profile_job(pipe, job, wall_s: float) -> None:
         f"{wall_s * 1e3:.2f} ms pass (profiled pass {wall_ms:.2f} ms), by kernel:")
     for ms, n, key in rows[:20]:
         log(f"      {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+    if span is not None:
+        cpu = [evt for evt in avgs if evt.key == span and evt.device_type == DeviceType.CPU]
+        dev = [evt for evt in avgs if evt.key == span and evt.device_type == DeviceType.CUDA]
+        if not cpu or cpu[0].device_time_total <= 0:
+            log(f"   {span}: the profiler gave the range no device time (not measured)")
+        else:
+            ms = cpu[0].device_time_total / 1e3
+            held = f"{dev[0].self_device_time_total / 1e3:.2f} ms" if dev else "not measured"
+            log(f"   {span}: {cpu[0].count} calls, its kernels {ms:.2f} ms = {100 * ms / busy:.1f}% of the "
+                f"pass's device time; its span on the device timeline {held} (profiled pass {wall_ms:.2f} ms)")
 
 
 def hidden_states(engine, batch) -> torch.Tensor:
@@ -1167,7 +1232,7 @@ def hidden_states(engine, batch) -> torch.Tensor:
 
 def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, label: str,
              batch_size: int = 128, hidden_tol: float = 0.1, prob_tol: float = 0.15,
-             profile: bool = False, attn_route: str = "auto") -> tuple[dict, list]:
+             profile: bool = False, attn_route: str = "auto", span: str | None = None) -> tuple[dict, list]:
     """classify_job on the card: a warm pass, then three timed passes; the
     launch counts and the (rows, seq) of every forward of the first timed
     pass; the first ``n_cpu`` texts against the same port on the CPU (the
@@ -1227,7 +1292,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     log(f"   forwards: {len(shapes)} (rows x seq: {shapes}); launches: {json.dumps(counts)}")
     log(f"   peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
-        profile_job(pipe, job, wall)
+        profile_job(pipe, job, wall, span)
 
     # The same port on the CPU (plain versions) for the first n_cpu texts.
     from gliclass.c_tpu_torch.prompting import pack_prompts
@@ -1643,6 +1708,284 @@ def serve_path(cfg, qparams, tok, rng: np.random.Generator, dev) -> tuple[dict, 
     return counts, n_fwd
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: head and encoder features, training
+# ---------------------------------------------------------------------------
+COMBINED_HEAD = {"scorer_type": "weighted-dot", "use_lstm": True, "squeeze_layers": True}
+
+
+@contextlib.contextmanager
+def bilstm_range():
+    """The forward's BiLSTM inside a ``record_function("bilstm")`` range, so
+    that the profiler can give its loop's device time."""
+    from gliclass.c_tpu_torch.models import gliclass as G
+
+    inner = G.bilstm
+
+    def ranged(p, x, mask):
+        with torch.profiler.record_function("bilstm"):
+            return inner(p, x, mask)
+
+    G.bilstm = ranged
+    try:
+        yield
+    finally:
+        G.bilstm = inner
+
+
+def fp32_probs_check(cfg, params, tok, texts: list, dev, label: str) -> None:
+    """fp32 probabilities (INT8 weights, weight-only in fp32) of the card
+    against the port on the CPU: relative L2 within 1e-4, decisions equal.
+    ``texts`` go in groups of one length bucket each."""
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    rt = RuntimeConfig(batch_size=8, max_length=512, compute_dtype="float32", quant_mode="int8",
+                       seq_buckets=SEQ_LADDER, label_buckets=(8,))
+    card, cpu = InferenceEngine(cfg, params, rt, device=dev), InferenceEngine(cfg, params, rt, device="cpu")
+    got, want = [], []
+    for group in texts:
+        batch = tok.encode_batch(pack_prompts(group, [JOB_LABELS], True, cfg.prompt_first), max_length=512)
+        got.append(card.run(batch, 8))
+        want.append(cpu.run(batch, 8))
+    got, want = np.concatenate(got), np.concatenate(want)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    clear = np.abs(want - 0.5) > 1e-3  # a decision within rounding of the threshold may go either way
+    same = bool(((got > 0.5) == (want > 0.5))[clear].all())
+    log(f"   {label} fp32, card vs CPU on {len(got)} texts: probabilities rel L2 {rel:.3e} (tol 1e-4), "
+        f"decisions {'equal' if same else 'differ'} ({int(clear.sum())} of {clear.size} clear of 0.5 by 1e-3), "
+        f"probabilities in [{want.min():.3f}, {want.max():.3f}]")
+    if not rel <= 1e-4 or not same:
+        fail(f"{label}: fp32 probabilities of the card and the CPU differ (rel L2 {rel}, decisions equal {same})")
+
+
+def head_features(cfg, qparams, tok, rng: np.random.Generator, dev) -> None:
+    """gliclass-base at full width and depth with the combined head
+    (weighted-dot scorer, BiLSTM, layer fuser) and with the mlp scorer,
+    through classify_job in "int8-dynamic" on short texts and a few of the
+    512 bucket; the combined head also in "int8". Texts/s, a profiled pass
+    in "int8-dynamic" (the BiLSTM loop's device time), launches (K1'/K2', or
+    K3'/K4', per layer and forward), card against CPU (run_path; fp32
+    probabilities 1e-4)."""
+    from gliclass.c_tpu_torch.ops.quant import quantize_tree
+
+    L = cfg.backbone.num_hidden_layers
+    job = make_job(rng, 128, 8)
+    groups = [job["texts"][:3], job["texts"][-1:]]
+    for name, over in (("combined", COMBINED_HEAD), ("mlp", {"scorer_type": "mlp"})):
+        hcfg = dataclasses.replace(cfg, **over)
+        hparams = quantize_tree(with_head_features(qparams, hcfg, rng))
+        modes = ("int8-dynamic", "int8") if name == "combined" else ("int8-dynamic",)
+        for mode in modes:
+            label = f"gliclass-base {name} head ({', '.join(f'{k}={v}' for k, v in over.items())}) {mode}"
+            t0 = time.perf_counter()
+            # One profiled pass per head: the BiLSTM's (about 17,000 kernels)
+            # takes the profiler tens of seconds to summarise.
+            profile = mode == "int8-dynamic"
+            with bilstm_range():
+                counts, shapes = run_path(hcfg, hparams, tok, job, mode, dev, 4, label, profile=profile,
+                                          span="bilstm" if hcfg.use_lstm else None)
+            n_fwd = len(shapes)
+            expect_attention(counts, shapes, L, label)
+            if mode == "int8-dynamic":
+                expect_launches(counts, "fused_ffn_w8a8", L * n_fwd, label)
+                expect_launches(counts, "fused_ffn_w8a8_tc", L * n_fwd, label)
+                if counts["int8_matmul"]:
+                    fail(f"{label}: int8_matmul launched {counts['int8_matmul']} times in int8-dynamic")
+            else:
+                expect_launches(counts, "fused_ffn_wonly", L * n_fwd, label)
+                expect_launches(counts, "fused_ffn_wonly_tc", L * n_fwd, label)
+                # K3 per forward: q, k, v, o and the two position
+                # projections of each layer (q/k/v stay unfused in "int8"),
+                # the two projectors' four linears and the scorer's four;
+                # all on tensor cores but the scorer's last (N = 1).
+                expect_launches(counts, "int8_matmul", (6 * L + 8) * n_fwd, label)
+                expect_launches(counts, "int8_matmul_tc", (6 * L + 7) * n_fwd, label)
+            log(f"   ({time.perf_counter() - t0:.1f} s for the run above, the CPU's part included)")
+        t0 = time.perf_counter()
+        fp32_probs_check(hcfg, hparams, tok, groups, dev, f"gliclass-base {name} head")
+        log(f"   ({time.perf_counter() - t0:.1f} s for the fp32 check)")
+        del hparams
+        torch.cuda.empty_cache()
+
+
+def xlarge_config():
+    """deberta-v2-xlarge's geometry (the public microsoft/deberta-v2-xlarge
+    config) at 4 of its 24 layers, built here: the port has no preset for it."""
+    from gliclass.c_tpu_torch.config import BackboneConfig
+
+    return BackboneConfig(model_type="deberta-v2", vocab_size=128100, hidden_size=1536, num_hidden_layers=4,
+                          num_attention_heads=24, intermediate_size=6144, max_position_embeddings=512,
+                          position_buckets=256, norm_rel_ebd="layer_norm", share_att_key=True,
+                          pos_att_type=("p2c", "c2p"), relative_attention=True, conv_kernel_size=3,
+                          conv_act="gelu", position_biased_input=False, layer_norm_eps=1e-7, hidden_act="gelu")
+
+
+def check_wide_kernels(dev, seed: int, shapes: list, bb) -> None:
+    """K1' at bb's head count and K2' at its widths (new to both; deberta-v2-
+    xlarge: 24 heads, H = 1536, I = 6144) against their plain versions, at
+    the (rows, seq) the conv phase's forwards gave them."""
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+    from gliclass.c_tpu_torch.ops import fused_ffn as FF
+    from gliclass.c_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    h, H, I = bb.num_attention_heads, bb.hidden_size, bb.intermediate_size
+    scale = math.sqrt(64 * 3)
+    for B, S in sorted(set(shapes)):
+        q, k, v = (torch.randn(B, h, S, 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        pk, pq = (torch.randn(h, 2 * S - 1, 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+        args = (q, k, v, pk, pq, mask, scale)
+        err = (FA.flash_disentangled_attention(*args).float()
+               - FA.flash_disentangled_attention_plain(*args).float()).abs().max().item()
+        log(f"   K1' at [{B}, {h}, {S}, 64] bf16: max|kernel-plain|={err:.3e} (tol 2e-2)")
+        if not err <= 2e-2:
+            fail(f"K1' at {h} heads [{B}, {S}]: max error {err}")
+    rng = np.random.default_rng([seed, 13])
+    M = max(B * S for B, S in shapes)
+    wu, su = quantize_weight(rng.normal(0, 0.02, (H, I)).astype(np.float32))
+    wd, sd = quantize_weight(rng.normal(0, 0.02, (I, H)).astype(np.float32))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    args = (torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16), t(wu), t(su),
+            t(rng.normal(0, 0.02, I).astype(np.float32)), t(wd), t(sd), t(rng.normal(0, 0.02, H).astype(np.float32)),
+            "gelu")
+    out = FF.fused_ffn_w8a8(*args, wt_up=FF.nk_weight(args[1]), wt_dn=FF.nk_weight(args[4]))
+    ref = FF.fused_ffn_w8a8_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 4 * 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)  # as phase 2's K2 check
+    log(f"   K2' at M={M} H={H} I={I}: max|kernel-plain|={err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        fail(f"K2' at H={H} I={I}: max error {err} above {tol}")
+
+
+def conv_and_decoder_fuser(tok_for, rng: np.random.Generator, dev, seed: int) -> None:
+    """The DeBERTa conv stem at deberta-v2-xlarge's width (4 of 24 layers),
+    and a Llama-1.3B-geometry decoder (4 of 24 layers) with the layer fuser
+    and the mlp scorer, each through classify_job in "int8-dynamic": card
+    against CPU (run_path), K1'/K2' and K5' launches per layer and forward."""
+    from gliclass.c_tpu_torch.config import GLiClassConfig, llama_config
+    from gliclass.c_tpu_torch.ops.quant import quantize_tree
+
+    bb = xlarge_config()
+    tok = tok_for(bb)
+    cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
+                         text_token_index=tok.sep_token_id, prompt_first=True, backbone=bb)
+    params = quantize_tree(make_params(rng, bb, cfg.hidden_size))
+    label = "deberta-v2-xlarge geometry (reduced depth: 4 of 24 layers), conv stem k=3, int8-dynamic"
+    counts, shapes = run_path(cfg, params, tok, make_job(rng, 64, 8), "int8-dynamic", dev, 4, label)
+    expect_launches(counts, "fused_ffn_w8a8", bb.num_hidden_layers * len(shapes), label)
+    expect_launches(counts, "fused_ffn_w8a8_tc", bb.num_hidden_layers * len(shapes), label)
+    expect_attention(counts, shapes, bb.num_hidden_layers, label)
+    check_wide_kernels(dev, seed, shapes, bb)
+    del params
+    torch.cuda.empty_cache()
+
+    bb = dataclasses.replace(llama_config("1.3b"), num_hidden_layers=4)
+    tok = tok_for(bb)
+    cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
+                         text_token_index=tok.sep_token_id, prompt_first=False, backbone=bb,
+                         scorer_type="mlp", squeeze_layers=True)
+    params = quantize_tree(with_head_features(make_decoder_params(rng, bb, cfg.hidden_size), cfg, rng))
+    label = "llama-1.3B geometry (4 of 24 layers), layer fuser + mlp scorer, int8-dynamic"
+    counts, shapes = run_path(cfg, params, tok, make_job(rng, 64, 8), "int8-dynamic", dev, 4, label, batch_size=64)
+    expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * len(shapes), label)
+    expect_launches(counts, "causal_flash_attention_tc", bb.num_hidden_layers * len(shapes), label)
+    del params
+    torch.cuda.empty_cache()
+
+
+def training(cfg, tok, rng: np.random.Generator, dev) -> None:
+    """The trainer on gliclass-base at full width and depth with the
+    combined head, fp32 params, AdamW: (a) one fp32 step at [4, 64], card
+    against CPU (loss 1e-4, grad norm 1e-3 relative); (b) 8 bf16 steps at
+    [16, 128] with accum_steps=2 on one batch, AdamW at 5e-5: the loss must
+    fall; step ms,
+    tokens/s, peak memory; (c) no kernel launched in the phase, and a kernel
+    wrapper refuses an input that requires grad."""
+    import functools
+
+    from gliclass.c_tpu_torch.ops import fused_attention as FA
+    from gliclass.c_tpu_torch.training.data import parse_train_records, train_batches
+    from gliclass.c_tpu_torch.training.train import init_train_state, make_train_step, param_leaves
+
+    tcfg = dataclasses.replace(cfg, **COMBINED_HEAD)
+    params = with_head_features(make_params(rng, cfg.backbone, cfg.hidden_size), tcfg, rng)
+    words = [f"w{i}" for i in range(5000)]
+
+    def batch(n: int, lo: int, hi: int, S: int):
+        records = [{"text": " ".join(rng.choice(words, size=int(rng.integers(lo, hi)))), "all_labels": JOB_LABELS,
+                    "true_labels": [str(x) for x in rng.choice(JOB_LABELS, size=2, replace=False)]}
+                   for _ in range(n)]
+        b = next(train_batches(parse_train_records(records), tok, n, 8, max_length=S, seq_buckets=(S,)))
+        return b.input_ids, b.attention_mask, b.targets, b.target_mask
+
+    # A fine-tuning rate (at 3e-4 Adam's first, sign-like steps threw the
+    # random model's loss from 0.66 to 2.7 before it came down).
+    adamw = functools.partial(torch.optim.AdamW, lr=5e-5, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    reset_counts()
+
+    small = batch(4, 30, 50, 64)
+    step = make_train_step(tcfg, 8)
+    res = {}
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        state, m = step(init_train_state(params, adamw, device=device), *small)
+        grads = torch.cat([t.grad.flatten().cpu() for t in param_leaves(state.params)])
+        res[device] = (m["loss"].item(), m["grad_norm"].item(), grads, time.perf_counter() - t0, state.params)
+        del state, m
+    (lc, gcard, g_card, tcard, p_card), (lh, gh, g_cpu, thost, _) = res[dev], res["cpu"]
+    if p_card["head"]["scorer"]["mlp_1"]["w"].device.type != torch.device(dev).type:
+        fail("training: the card's state is not on the card")
+    rl, rg = abs(lc - lh) / abs(lh), abs(gcard - gh) / abs(gh)
+    rgrads = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+    log(f"(a) fp32 step at [4, 64]: loss card {lc!r} CPU {lh!r} (rel {rl:.2e}, tol 1e-4); grad norm card "
+        f"{gcard!r} CPU {gh!r} (rel {rg:.2e}, tol 1e-3); all gradients rel L2 {rgrads:.2e}; first step (with "
+        f"state set-up) card {tcard:.2f} s, CPU {thost:.2f} s")
+    if not (rl <= 1e-4 and rg <= 1e-3):
+        fail(f"training: card and CPU first steps differ (loss rel {rl}, grad norm rel {rg})")
+    del res, g_card, g_cpu, p_card
+
+    big = batch(16, 100, 140, 128)
+    valid = int(big[1].sum())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(params, adamw, device=dev)
+    step = make_train_step(tcfg, 8, compute_dtype=torch.bfloat16, accum_steps=2)
+    losses, walls = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        state, m = step(state, *big)
+        losses.append(m["loss"].item())  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(walls[1:])
+    log(f"(b) bf16, [16, 128], accum_steps=2, AdamW lr 5e-5: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"    step {ms:.1f} ms (median of steps 2-8; first {1e3 * walls[0]:.1f} ms) = "
+        f"{16 * 128 / ms * 1e3:.0f} tokens/s of the [16, 128] batch ({valid / ms * 1e3:.0f} valid tokens/s); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (params, grads and AdamW moments "
+        f"in fp32)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"training: the bf16 loss did not fall over 8 steps ({losses})")
+    del state, m
+
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"training launched kernels: {counts}")
+    q = torch.randn(2, 12, 64, 64, device=dev, requires_grad=True)
+    pos = torch.randn(12, 127, 64, device=dev)
+    try:
+        FA.flash_disentangled_attention(q, q, q, pos, pos, torch.ones(2, 64, dtype=torch.int32, device=dev), 8.0)
+        fail("a kernel wrapper took an input that requires grad")
+    except RuntimeError as e:
+        log(f"(c) no kernel launched in the phase (every counter 0); a wrapper given an input that requires "
+            f"grad raises: {e}")
+    if any(read_counts().values()):
+        fail("the refused call counted a launch")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1768,6 +2111,7 @@ def main() -> int:
         for name in ("abs_pos_table", "bias_fused_attention"):
             launches[name], paths[name] = counts[name], "serve: gliclass-base int8-dynamic, attn_route=bias"
         launches_tc["bias_fused_attention"] = counts["bias_fused_attention_tc"]
+    base = (cfg, qparams, tok)  # gliclass-base, for phases 10 and 12
     del qparams
     torch.cuda.empty_cache()
 
@@ -1812,6 +2156,17 @@ def main() -> int:
         expect_launches(counts, "causal_flash_attention", bb.num_hidden_layers * n_fwd, "llama path")
         expect_launches(counts, "causal_flash_attention_tc", counts["causal_flash_attention"], "llama path")
         del qparams
+
+    with phase("phase 10: head features, gliclass-base at full width and depth"):
+        head_features(*base, np.random.default_rng([args.seed, 10]), dev)
+
+    with phase("phase 11: conv stem at deberta-v2-xlarge width, decoder layer fuser"):
+        conv_and_decoder_fuser(lambda bb: PromptTokenizer(WordTokenizer(bb.vocab_size)),
+                               np.random.default_rng([args.seed, 11]), dev, args.seed)
+
+    with phase("phase 12: training, gliclass-base (DeBERTa) at full width and depth"):
+        training(base[0], base[2], np.random.default_rng([args.seed, 12]), dev)
+    del base
 
     sources = {
         "flash_disentangled_attention": ("gliclass/c_tpu_torch/csrc/flash_disentangled_attention_tc.cu",

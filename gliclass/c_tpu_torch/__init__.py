@@ -6,7 +6,9 @@ reference. It imports nothing of JAX and nothing of ``gliclass.c_tpu``: it
 reads the same weight bundles, runs the same forward pass and honours the
 same batch-job contract (``ZeroShotClassificationPipeline.classify_job``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
-on CPU tensors each kernel wrapper runs its plain PyTorch version.
+on CPU tensors each kernel wrapper runs its plain PyTorch version. The
+trainer (``training/``) fine-tunes on one device through the plain
+formulations.
 """
 
 from .config import BackboneConfig, GLiClassConfig, RuntimeConfig

@@ -20,7 +20,6 @@ import torch
 from .config import GLiClassConfig, RuntimeConfig
 from .convert.params import params_from_numpy
 from .models.gliclass import gliclass_probs
-from .models.heads import check_head_supported
 from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
 from .tokenization import TokenizedBatch
@@ -110,7 +109,6 @@ class InferenceEngine:
         rt = self.runtime
         if (rt.dp_size, rt.tp_size, rt.sp_size) != (1, 1, 1):
             raise ValueError("the port runs on one card: dp_size, tp_size and sp_size must be 1")
-        check_head_supported(cfg)
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[rt.compute_dtype]
         # w8a8 (dynamic per-row INT8 activations on INT8 weights):

@@ -25,6 +25,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import BackboneConfig
 from ..ops.fused_attention import (
@@ -35,7 +36,7 @@ from ..ops.fused_attention import (
     tiled_bias_attention,
 )
 from ..ops.fused_ffn import fused_ffn
-from ..ops.layers import layer_norm, linear, masked_softmax
+from ..ops.layers import activation, layer_norm, linear, masked_softmax
 
 Params = dict[str, Any]
 
@@ -246,6 +247,26 @@ def encoder_layer(
     return layer_norm(p["ffn"]["ln"], h + x, cfg.layer_norm_eps)
 
 
+def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
+               attention_mask: torch.Tensor, cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
+    """DeBERTa-v2 conv stem (``conv_kernel_size > 0``, the deberta-v2-xlarge
+    family), transformers' ``ConvLayer`` after encoder layer 0: a "same"
+    padded 1-D conv over the embedding output in the compute dtype with fp32
+    sums, bias, padded positions zeroed, activation, residual onto layer 0's
+    output, LayerNorm, masked again. The kernel is kept as the JAX package
+    keeps it, [k, H_in, H_out]; conv1d takes it as [H_out, H_in, k]."""
+    k = cfg.conv_kernel_size
+    if k % 2 == 0:
+        raise ValueError("conv_kernel_size must be odd (torch same-padding)")
+    x = embed_out.to(compute_dtype).float().transpose(1, 2)  # [B, H, S]
+    w = p["w"].to(compute_dtype).float().permute(2, 1, 0)
+    out = F.conv1d(x, w, padding=(k - 1) // 2).transpose(1, 2) + p["b"].float()
+    m = attention_mask[..., None].float()
+    out = activation(cfg.conv_act)(out * m).to(compute_dtype)
+    y = layer_norm(p["ln"], layer0_out + out, cfg.layer_norm_eps)
+    return y * m.to(y.dtype)
+
+
 def embed(p: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
           cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
     """Word embeddings -> (optional proj) -> LayerNorm -> zero padded positions."""
@@ -270,12 +291,16 @@ def deberta_encode(
     cfg: BackboneConfig,
     compute_dtype=torch.float32,
     attn_route: str = "auto",
+    return_all_layers: bool = False,
 ) -> torch.Tensor:
     """Full encoder forward: [B, S] ids + mask -> [B, S, H] hidden states.
     ``attn_route`` (RuntimeConfig.attn_route) is resolved once for the
-    forward's (S, B) and device by ``ops.fused_attention.attention_route``."""
-    if cfg.conv_kernel_size > 0:
-        raise NotImplementedError("the DeBERTa conv stem (conv_kernel_size > 0) is not ported yet")
+    forward's (S, B) and device by ``ops.fused_attention.attention_route``.
+
+    With ``return_all_layers`` the states stacked [L+1, B, S, H] in
+    transformers' ``output_hidden_states`` order: the embedding output, then
+    each layer's output, layer 0's merged with the conv stem where there is
+    one (the ``squeeze_layers`` fuser reads them)."""
     B, S = input_ids.shape
     dev = input_ids.device
     x = embed(params["embeddings"], input_ids, attention_mask, cfg, compute_dtype)
@@ -302,9 +327,14 @@ def deberta_encode(
     route = attention_route(S, B, cfg.head_dim, attn_route, dev) if kernel_route(cfg) else "score"
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
+    states = [x]
     for i in range(n_layers):
         x = encoder_layer(
             _layer(layers, i), x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg,
             compute_dtype, key_mask, route,
         )
-    return x
+        if i == 0 and cfg.conv_kernel_size > 0:
+            x = conv_layer(params["conv"], states[0], x, attention_mask, cfg, compute_dtype)
+        if return_all_layers:
+            states.append(x)
+    return torch.stack(states) if return_all_layers else x

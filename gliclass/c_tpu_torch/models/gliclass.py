@@ -15,7 +15,7 @@ import torch
 
 from ..config import GLiClassConfig
 from .deberta import deberta_encode
-from .heads import gliclass_head
+from .heads import bilstm, fuse_layers, gliclass_head
 from .llama import llama_encode
 
 Params = dict[str, Any]
@@ -28,14 +28,19 @@ def encode_backbone(
     cfg: GLiClassConfig,
     compute_dtype,
     attn_route: str = "auto",
+    return_all_layers: bool = False,
 ) -> torch.Tensor:
-    """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone.
-    ``attn_route`` selects DeBERTa's attention route (decoders ignore it)."""
+    """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone
+    (with ``return_all_layers``, every state stacked [L+1, B, S, H]).
+    ``attn_route`` selects the attention route (decoders: "xla"/"table" the
+    score path, any other K5)."""
     bb = cfg.backbone
     if bb.model_type == "deberta-v2":
-        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route)
+        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route,
+                              return_all_layers)
     if bb.model_type in ("llama", "qwen2"):
-        return llama_encode(params, input_ids, attention_mask, bb, compute_dtype)
+        return llama_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route,
+                            return_all_layers)
     raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
 
 
@@ -48,7 +53,9 @@ def gliclass_forward(
     compute_dtype=torch.float32,
     attn_route: str = "auto",
 ) -> torch.Tensor:
-    """[B,S] ids + mask -> fp32 logits [B, max_labels]."""
+    """[B,S] ids + mask -> fp32 logits [B, max_labels]. ``squeeze_layers``
+    mixes every encoder state with the layer fuser, then ``use_lstm`` refines
+    the states with the BiLSTM, before the head (the JAX package's order)."""
     if cfg.architecture_type != "uni-encoder":
         raise ValueError(
             f"unsupported architecture_type: {cfg.architecture_type!r} "
@@ -56,8 +63,13 @@ def gliclass_forward(
             "ONNX_CONVERTING/convert_to_onnx.py:48-52)"
         )
     hidden = encode_backbone(
-        params["backbone"], input_ids, attention_mask, cfg, compute_dtype, attn_route
+        params["backbone"], input_ids, attention_mask, cfg, compute_dtype, attn_route,
+        return_all_layers=cfg.squeeze_layers,
     )
+    if cfg.squeeze_layers:
+        hidden = fuse_layers(params["layers_fuser"], hidden)
+    if cfg.use_lstm:
+        hidden = bilstm(params["lstm"], hidden, attention_mask)
     logits, _ = gliclass_head(
         params["head"], hidden, input_ids, attention_mask, cfg, max_labels, compute_dtype
     )

@@ -3,8 +3,8 @@
 The structure follows the HF ``gliclass`` package (GLiClassUniEncoder +
 FeaturesProjector + scorers), the upstream of every exported checkpoint;
 parameter names match it (text_projector / classes_projector / linear_1 /
-linear_2). This slice ports the ``simple`` scorer; the ``mlp`` and
-``weighted-dot`` scorers, ``squeeze_layers`` and the BiLSTM raise.
+linear_2). Besides the head itself: the layer fuser (``squeeze_layers``) and
+the BiLSTM (``use_lstm``) that refine the encoder states before it.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..config import GLiClassConfig
 from ..ops.layers import activation, linear
@@ -94,14 +95,77 @@ def score_simple(text_rep: torch.Tensor, label_rep: torch.Tensor) -> torch.Tenso
     return torch.einsum("bh,blh->bl", text_rep.float(), label_rep.float())
 
 
-def check_head_supported(cfg: GLiClassConfig) -> None:
-    """Raise for head features this slice does not port."""
-    if cfg.scorer_type != "simple":
-        raise NotImplementedError(f"scorer_type {cfg.scorer_type!r} is not ported yet (only 'simple')")
-    if cfg.use_lstm:
-        raise NotImplementedError("use_lstm (BiLSTM head) is not ported yet")
-    if cfg.squeeze_layers:
-        raise NotImplementedError("squeeze_layers (layer fuser) is not ported yet")
+def score_mlp(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
+              compute_dtype) -> torch.Tensor:
+    """MLP scorer over [label; text; label*text] features -> fp32 [B, L]."""
+    t = text_rep[:, None, :].expand_as(label_rep)
+    feats = torch.cat([label_rep, t, label_rep * t], dim=-1)
+    h = F.relu(linear(p["mlp_1"], feats, compute_dtype))
+    return linear(p["mlp_2"], h, compute_dtype)[..., 0].float()
+
+
+def score_weighted_dot(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
+                       compute_dtype) -> torch.Tensor:
+    """ScorerWeightedDot: text and label reps projected to 2H and split in
+    halves; an MLP over [text_h0; label_h0; text_h1 * label_h1] -> fp32 [B, L]."""
+    H = label_rep.shape[-1]
+    t2 = linear(p["proj_text"], text_rep, compute_dtype)  # [B, 2H]
+    l2 = linear(p["proj_label"], label_rep, compute_dtype)  # [B, L, 2H]
+    t2 = t2[:, None, :].expand_as(l2)
+    feats = torch.cat([t2[..., :H], l2[..., :H], t2[..., H:] * l2[..., H:]], dim=-1)
+    h = F.relu(linear(p["mlp_1"], feats, compute_dtype))
+    return linear(p["mlp_2"], h, compute_dtype)[..., 0].float()
+
+
+def fuse_layers(p: Params, states: torch.Tensor) -> torch.Tensor:
+    """LayersFuser (``squeeze_layers``): softmax(weights)-weighted sum over
+    the encoder states [N, B, S, H] (embedding output, then each layer) ->
+    [B, S, H] in the states' dtype. A running fp32 sum over the N states,
+    so no fp32 copy of the stack is made."""
+    w = torch.softmax(p["weights"].float(), dim=0)
+    out = w[0] * states[0].float()
+    for i in range(1, states.shape[0]):
+        out = out + w[i] * states[i].float()
+    return out.to(states.dtype)
+
+
+def _lstm_scan(p: Params, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One LSTM direction with pack_padded semantics over right-padded input:
+    at a masked step the state freezes and the output is 0. x fp32 [B, S, H],
+    mask bool [B, S] -> fp32 [B, S, h]. torch gate order (i, f, g, o);
+    b = b_ih + b_hh. The input projection of every step is one product; the
+    recurrence is a loop over S, all in fp32."""
+    B, S, _ = x.shape
+    w_hh = p["w_hh"].float()
+    h_dim = w_hh.shape[0]
+    xg = x @ p["w_ih"].float() + p["b"].float()  # [B, S, 4h]
+    h = x.new_zeros((B, h_dim))
+    c = x.new_zeros((B, h_dim))
+    ys = []
+    for t in range(S):
+        z = xg[:, t] + h @ w_hh
+        i, f, g, o = z.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        m = mask[:, t, None]
+        h = torch.where(m, h_new, h)
+        c = torch.where(m, c_new, c)
+        ys.append(torch.where(m, h, 0.0))
+    return torch.stack(ys, dim=1)
+
+
+def bilstm(p: Params, x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Bidirectional LSTM over the encoder states (``use_lstm``): H -> H (two
+    H/2 directions), as torch's nn.LSTM(bidirectional, batch_first) over
+    pack_padded_sequence, without the lengths on the host. The backward
+    direction is the masked scan over the flipped padded sequence: its
+    leading pad steps carry the zero state, which is "start at the last
+    valid token". Arithmetic in fp32; the result in x's dtype."""
+    mask = attention_mask.bool()
+    xf = x.float()
+    y_f = _lstm_scan(p["fwd"], xf, mask)
+    y_b = _lstm_scan(p["bwd"], xf.flip(1), mask.flip(1)).flip(1)
+    return torch.cat([y_f, y_b], dim=-1).to(x.dtype)
 
 
 def gliclass_head(
@@ -115,7 +179,6 @@ def gliclass_head(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """hidden [B,S,H] -> (logits f32 [B,max_labels], label_mask [B,max_labels]).
     Padded label slots get NEG_LOGIT, so their sigmoid is 0."""
-    check_head_supported(cfg)
     label_emb, label_mask = extract_label_embeddings(
         hidden, input_ids, cfg.class_token_index, max_labels
     )
@@ -139,7 +202,14 @@ def gliclass_head(
         label_emb = label_emb / torch.clamp(
             torch.linalg.vector_norm(label_emb, dim=-1, keepdim=True), min=1e-12
         )
-    logits = score_simple(text_rep, label_emb)
+    if cfg.scorer_type == "simple":
+        logits = score_simple(text_rep, label_emb)
+    elif cfg.scorer_type == "mlp":
+        logits = score_mlp(params["scorer"], text_rep, label_emb, compute_dtype)
+    elif cfg.scorer_type == "weighted-dot":
+        logits = score_weighted_dot(params["scorer"], text_rep, label_emb, compute_dtype)
+    else:
+        raise ValueError(f"unsupported scorer_type: {cfg.scorer_type!r}")
     if "logit_scale" in params:
         # Learned CLIP-style scale, present iff the converted checkpoint had it.
         logits = logits * torch.exp(params["logit_scale"].float())

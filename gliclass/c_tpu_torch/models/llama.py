@@ -15,7 +15,8 @@ Python loop over ``[L, ...]`` slices. Every matmul goes through
 Attention takes the kernel route (ops/causal_attention, K5): GQA without
 repeating k/v, fp32 scores and softmax statistics, no [B, h, S, S] tensor.
 :func:`score_attention` keeps the JAX package's materialized-score
-formulation as the reference the tests hold the kernel route against.
+formulation: the reference the tests hold the kernel route against, and the
+path of the "xla"/"table" routes (the trainer's).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import BackboneConfig
+from ..config import BackboneConfig, check_attn_route
 from ..ops.causal_attention import causal_flash_attention
 from ..ops.layers import linear, masked_softmax, rms_norm
 from .deberta import _layer, _split_heads
@@ -123,20 +124,40 @@ def llama_mlp(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                 cfg: BackboneConfig, compute_dtype=torch.float32) -> torch.Tensor:
-    """[B, S] ids + mask -> [B, S, H] hidden states (after the final norm)."""
+                 cfg: BackboneConfig, compute_dtype=torch.float32, attn_route: str = "auto",
+                 return_all_layers: bool = False) -> torch.Tensor:
+    """[B, S] ids + mask -> [B, S, H] hidden states (after the final norm).
+
+    ``attn_route`` "xla" or "table" takes :func:`score_attention` (the JAX
+    package's GLICLASS_TPU_CAUSAL_ATTN=xla; the trainer's route, since K5
+    has no backward); every other route the K5 kernel route.
+
+    With ``return_all_layers`` the states stacked [L+1, B, S, H] in
+    transformers' ``output_hidden_states`` order: the embedding output, the
+    input of layers 1..L-1, and the final-normed output last (the raw output
+    of the last layer never appears)."""
+    check_attn_route(attn_route)
     B, S = input_ids.shape
     x = params["embeddings"]["word"].index_select(0, input_ids.reshape(-1).long())
     x = x.reshape(B, S, -1).to(compute_dtype)
     key_mask = attention_mask.to(torch.int32).contiguous()
     cos, sin = rope_device(S, cfg.head_dim, float(cfg.rope_theta), str(input_ids.device))
+    score = attn_route in ("xla", "table")
+    mask_bias = causal_mask_bias(attention_mask) if score else None
 
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
+    states = []
     for i in range(n_layers):
+        if return_all_layers:
+            states.append(x)
         p = _layer(layers, i)
         a = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
-        x = x + llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype)
+        if score:
+            x = x + score_attention(p["attn"], a, mask_bias, cos, sin, cfg, compute_dtype)
+        else:
+            x = x + llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype)
         m = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
         x = x + llama_mlp(p["mlp"], m, compute_dtype)
-    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
+    final = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
+    return torch.stack(states + [final]) if return_all_layers else final

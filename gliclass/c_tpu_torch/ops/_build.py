@@ -152,6 +152,23 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record through a kernel: a launch through
+    ``ctypes`` returns a tensor with no ``grad_fn``, so gradients would stop
+    there without a word (the JAX package cannot differentiate a
+    ``pallas_call`` without a VJP either). Under ``torch.no_grad`` or
+    ``torch.inference_mode`` (the engine) nothing is checked. Every kernel
+    wrapper calls it first, on either device, so a trainer that reaches a
+    kernel fails on the CPU as it would on the card."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward; "
+            "train through the plain formulations (attn_route 'xla', unquantized weights)"
+        )
+
+
 def stream_ptr(t) -> int:
     """PyTorch's current stream on ``t``'s device, as an address."""
     import torch

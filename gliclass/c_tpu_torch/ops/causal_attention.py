@@ -76,6 +76,7 @@ def causal_flash_attention(qg, k, v, attention_mask, scale):
     one of float32/bfloat16, d <= 128; attention_mask [B, S] int32.
     Returns [B, nkv, g, S, d], laid out in memory as [B, S, nkv*g, d] so
     that merging the heads back to [B, S, nh*d] is free."""
+    _build.refuse_grad("causal_flash_attention", qg, k, v)
     if not qg.is_cuda:
         return causal_flash_attention_plain(qg, k, v, attention_mask, scale)
     global launches, launches_tc

@@ -135,6 +135,7 @@ def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, 
     int32. Returns [B, h, S, 64], laid out in memory as [B, S, h, 64] so that
     the merge of heads back to [B, S, h*64] is free. bf16 inputs launch the
     tensor-core kernel, fp32 the CUDA-core one (:func:`kernel_variant`)."""
+    _build.refuse_grad("flash_disentangled_attention", q, k, v, pos_k_rel, pos_q_rel)
     if not q.is_cuda:
         return flash_disentangled_attention_plain(
             q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale
@@ -178,6 +179,7 @@ def abs_pos_table(pos_rel: torch.Tensor, S: int) -> torch.Tensor:
     the JAX package's [h, d, S, S] table with the query axis moved ahead of
     d, so that the [d, S] slab each query row multiplies is contiguous and the
     bias products batch over (h, x) without a copy. Exact (a copy of values)."""
+    _build.refuse_grad("abs_pos_table", pos_rel)
     if not pos_rel.is_cuda:
         return abs_pos_table_plain(pos_rel, S)
     global launches_table
@@ -219,6 +221,7 @@ def bias_fused_attention(q, k, v, c2p, p2c, attention_mask, scale):
     out as [B, S, h, 64] like K1's output. bf16 q/k/v with bf16 biases
     launch the tensor-core kernel, other types the CUDA-core one
     (:func:`kernel_variant`)."""
+    _build.refuse_grad("bias_fused_attention", q, k, v, c2p, p2c)
     if not q.is_cuda:
         return bias_fused_attention_plain(q, k, v, c2p, p2c, attention_mask, scale)
     global launches_bias, launches_bias_tc
@@ -286,6 +289,7 @@ def row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, sc
     exact over each row and p is normalised before it is rounded to v's type
     (the JAX package's ``fused_disentangled_attention``). bf16 inputs launch
     the tensor-core kernel, others the CUDA-core one (:func:`kernel_variant`)."""
+    _build.refuse_grad("row_disentangled_attention", q, k, v, pos_k_rel, pos_q_rel)
     if not q.is_cuda:
         return row_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale)
     global launches_row, launches_row_tc
@@ -343,6 +347,7 @@ def windowed_pos_tables(pos_rel: torch.Tensor, blk: int) -> torch.Tensor:
     package's layout is [h, 2n-1, d, blk, blk]; here d is innermost, so that
     the vector K10 contracts for one (x, y) pair is contiguous. Exact (a copy
     of values)."""
+    _build.refuse_grad("windowed_pos_tables", pos_rel)
     if not pos_rel.is_cuda:
         return windowed_pos_tables_plain(pos_rel, blk)
     global launches_win_table
@@ -393,6 +398,7 @@ def tiled_attention(q, k, v, twc, twq, attention_mask, scale):
     (float32 or bfloat16), one blk dividing S. Returns [B, h, S, 64], laid
     out as [B, S, h, 64]. bf16 q/k/v with bf16 tables launch the tensor-core
     kernel, other types the CUDA-core one (:func:`kernel_variant`)."""
+    _build.refuse_grad("tiled_attention", q, k, v, twc, twq)
     if not q.is_cuda:
         return tiled_attention_plain(q, k, v, twc, twq, attention_mask, scale)
     global launches_tiled, launches_tiled_tc

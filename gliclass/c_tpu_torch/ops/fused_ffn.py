@@ -153,6 +153,7 @@ def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu", w
     [I]; wq_dn int8 [I, H]; s_dn, b_dn f32 [H]; wt_up, wt_dn: their [N, K]
     copies (:func:`nk_weight`), which the tensor-core variant reads and
     requires (a CUDA x only). The variant by :func:`kernel_variant`."""
+    _build.refuse_grad("fused_ffn_w8a8", x, s_up, b_up, s_dn, b_dn)
     if not x.is_cuda:
         return fused_ffn_w8a8_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
     global launches, launches_tc
@@ -179,6 +180,7 @@ def fused_ffn_w8a8(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu", w
 def fused_ffn_wonly(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act="gelu"):
     """Weight-only INT8 FFN (K4), same arguments as :func:`fused_ffn_w8a8`;
     the variant by :func:`kernel_variant`."""
+    _build.refuse_grad("fused_ffn_wonly", x, s_up, b_up, s_dn, b_dn)
     if not x.is_cuda:
         return fused_ffn_wonly_plain(x, wq_up, s_up, b_up, wq_dn, s_dn, b_dn, hidden_act)
     global launches_wonly, launches_wonly_tc

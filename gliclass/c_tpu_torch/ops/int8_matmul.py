@@ -56,6 +56,7 @@ def int8_matmul(
 ) -> torch.Tensor:
     """y = (x @ w_q) * scale (+ bias). x [..., K] fp32 or bf16; w_q int8
     [K, N]; scale f32 [N]; bias f32 [N] or None. Output in x's dtype."""
+    _build.refuse_grad("int8_matmul", x, scale, bias)
     if not x.is_cuda:
         return int8_matmul_plain(x, w_q, scale, bias)
     global launches, launches_tc

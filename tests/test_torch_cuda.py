@@ -1271,3 +1271,141 @@ def test_engine_int8_dynamic_adds_nk_weights_on_card(dev):
         if added:
             assert torch.equal(ffn["up"]["w_t"], ffn["up"]["w_q"].transpose(1, 2))
             assert ffn["down"]["w_t"].shape == (L, H, I) and ffn["down"]["w_t"].is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Head and encoder features (models/heads.py, the conv stem) and training
+# ---------------------------------------------------------------------------
+COMBINED_HEAD = {"scorer_type": "weighted-dot", "use_lstm": True, "squeeze_layers": True}
+FEATURE_LABELS = [["politics", "sports", "science", "health"]]
+
+
+def _feature_model(conv: int = 0, **head):
+    """A 2-layer DeBERTa of head width 64 (so the kernels run: hidden 128, 2
+    heads) with ``head``'s features, random weights from chip_smoke."""
+    import chip_smoke
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    bb = BackboneConfig(model_type="deberta-v2", vocab_size=1000, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256, max_position_embeddings=512,
+                        position_buckets=64, norm_rel_ebd="layer_norm", share_att_key=True,
+                        position_biased_input=False, conv_kernel_size=conv, conv_act="gelu")
+    tok = PromptTokenizer(chip_smoke.WordTokenizer(bb.vocab_size))
+    cfg = GLiClassConfig(hidden_size=128, class_token_index=tok.label_token_id, text_token_index=tok.sep_token_id,
+                         prompt_first=True, backbone=bb, **head)
+    rng = np.random.default_rng(5)
+    params = chip_smoke.with_head_features(chip_smoke.make_params(rng, bb, 128), cfg, rng)
+    texts = chip_smoke.make_job(rng, 6, 0)["texts"]
+    return cfg, tok, params, texts
+
+
+def _reset_counters():
+    FA.launches = FA.launches_flash_tc = IM.launches = FF.launches = FF.launches_wonly = CA.launches = 0
+
+
+@pytest.mark.parametrize("head", [COMBINED_HEAD, {"scorer_type": "mlp"}], ids=["combined", "mlp"])
+@pytest.mark.parametrize("n", [1, 6])
+@pytest.mark.parametrize("compute_dtype,quant_mode", [("float32", "int8"), ("bfloat16", "int8-dynamic")])
+def test_head_features_on_card(dev, head, n, compute_dtype, quant_mode):
+    """The combined head (weighted-dot scorer, BiLSTM, layer fuser) and the
+    mlp scorer, card against CPU: fp32 (weight-only INT8) to 1e-4 relative
+    L2 on probabilities, bf16 "int8-dynamic" to 5e-2. At B = 1 the scorer's
+    w8a8 products have 1 and 4 rows (int_mm_padded)."""
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    cfg, tok, params, texts = _feature_model(**head)
+    q = quantize_tree(params)
+    batch = tok.encode_batch(pack_prompts(texts[:n], FEATURE_LABELS, True, True), max_length=128, pad_to=128)
+    rt = RuntimeConfig(batch_size=8, max_length=128, compute_dtype=compute_dtype, quant_mode=quant_mode,
+                       seq_buckets=(128,), label_buckets=(4,))
+    _reset_counters()
+    card = InferenceEngine(cfg, q, rt).run(batch, 4)
+    torch.cuda.synchronize()
+    assert FA.launches == 2 and (FF.launches if quant_mode == "int8-dynamic" else IM.launches) > 0
+    cpu = InferenceEngine(cfg, q, rt, device="cpu").run(batch, 4)
+    assert card.shape == (n, 4) and np.isfinite(card).all()
+    if compute_dtype == "float32":
+        assert np.linalg.norm(card - cpu) / np.linalg.norm(cpu) <= 1e-4
+    else:
+        assert np.abs(card - cpu).max() <= 5e-2
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_conv_stem_on_card(dev, compute_dtype, tol):
+    """The conv stem (k = 3, gelu) at head width 64: the backbone's hidden
+    states and every stacked state (return_all_layers), card against CPU
+    (relative L2 over valid tokens), with K1 launched once a layer."""
+    import chip_smoke
+    from gliclass.c_tpu_torch.models.deberta import deberta_encode
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    cfg, tok, params, texts = _feature_model(conv=3)
+    q = quantize_tree(params)
+    batch = tok.encode_batch(pack_prompts(texts, FEATURE_LABELS, True, True), max_length=128, pad_to=128)
+    valid = torch.from_numpy(batch.attention_mask).bool()
+    rt = RuntimeConfig(max_length=128, compute_dtype=compute_dtype, quant_mode="int8-dynamic")
+    card_engine, cpu_engine = InferenceEngine(cfg, q, rt), InferenceEngine(cfg, q, rt, device="cpu")
+    _reset_counters()
+    h_card = chip_smoke.hidden_states(card_engine, batch)
+    assert FA.launches == 2
+    h_cpu = chip_smoke.hidden_states(cpu_engine, batch)
+    assert ((h_card[valid] - h_cpu[valid]).norm() / h_cpu[valid].norm()).item() <= tol
+    states = []
+    for engine in (card_engine, cpu_engine):
+        ids, mask = engine._device_inputs(batch.input_ids, batch.attention_mask)
+        with torch.inference_mode():
+            states.append(deberta_encode(engine.params["backbone"], ids, mask, cfg.backbone, engine.compute_dtype,
+                                         return_all_layers=True).float().cpu())
+    assert states[0].shape == (3, len(texts), 128, 128)
+    for a, b in zip(*states):
+        assert ((a[valid] - b[valid]).norm() / b[valid].norm()).item() <= tol
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One fp32 AdamW step of the combined head, card against CPU: loss to
+    1e-4, grad norm to 1e-3 relative; no kernel launched."""
+    import functools
+
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+    from gliclass.c_tpu_torch.training.train import init_train_state, make_train_step
+
+    cfg, tok, params, texts = _feature_model(**COMBINED_HEAD)
+    batch = tok.encode_batch(pack_prompts(texts, FEATURE_LABELS, True, True), max_length=64, pad_to=64)
+    targets = (np.arange(24).reshape(6, 4) % 3 == 0).astype(np.float32)
+    args = (batch.input_ids, batch.attention_mask, targets, np.ones((6, 4), dtype=bool))
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-3, weight_decay=0.01)
+    step = make_train_step(cfg, 4)
+    _reset_counters()
+    got = step(init_train_state(params, adamw, device=dev), *args)[1]
+    assert (FA.launches, IM.launches, FF.launches, FF.launches_wonly, CA.launches) == (0, 0, 0, 0, 0)
+    want = step(init_train_state(params, adamw, device="cpu"), *args)[1]
+    assert abs(got["loss"].item() - want["loss"].item()) <= 1e-4 * abs(want["loss"].item())
+    assert abs(got["grad_norm"].item() - want["grad_norm"].item()) <= 1e-3 * abs(want["grad_norm"].item())
+
+
+GRAD_CALLS = {
+    "flash_disentangled_attention": lambda x: FA.flash_disentangled_attention(x, x, x, x, x, None, 8.0),
+    "abs_pos_table": lambda x: FA.abs_pos_table(x, 8),
+    "bias_fused_attention": lambda x: FA.bias_fused_attention(x, x, x, x, x, None, 8.0),
+    "row_disentangled_attention": lambda x: FA.row_disentangled_attention(x, x, x, x, x, None, 8.0),
+    "windowed_pos_tables": lambda x: FA.windowed_pos_tables(x, 32),
+    "tiled_attention": lambda x: FA.tiled_attention(x, x, x, x, x, None, 8.0),
+    "fused_ffn_w8a8": lambda x: FF.fused_ffn_w8a8(x, None, x, x, None, x, x),
+    "fused_ffn_wonly": lambda x: FF.fused_ffn_wonly(x, None, x, x, None, x, x),
+    "int8_matmul": lambda x: IM.int8_matmul(x, None, x, x),
+    "causal_flash_attention": lambda x: CA.causal_flash_attention(x, x, x, None, 8.0),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAD_CALLS))
+def test_kernel_wrapper_refuses_grad_on_card(dev, name):
+    """A kernel launched through ctypes returns a tensor with no grad_fn:
+    every wrapper refuses an input that requires grad (with grad enabled)
+    before it launches or counts anything."""
+    import chip_smoke
+
+    chip_smoke.reset_counts()
+    x = torch.zeros(4, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        GRAD_CALLS[name](x)
+    assert not any(chip_smoke.read_counts().values())

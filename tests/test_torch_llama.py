@@ -324,12 +324,20 @@ def test_gliclass_probs_bf16_int8_close_to_jax(decoder_params, quant_mode):
     assert np.abs(got - want).max() < 5e-2
 
 
-def test_gliclass_forward_decoder_unported_head_raises(decoder_params):
-    _, tc, params, _ = decoder_params
+@pytest.mark.parametrize("quantized", [False, True])
+def test_gliclass_probs_decoder_squeeze_layers_matches_jax(decoder_params, quantized):
+    """``squeeze_layers`` over a decoder: the layer fuser mixes the
+    embedding output, the inputs of layers 1..L-1 and the final-normed
+    output (transformers' order), fp32 to 1e-5."""
+    jc, tc, params, qparams = decoder_params
+    weights = np.random.default_rng(7).normal(size=(jc.backbone.num_hidden_layers + 1,)).astype(np.float32)
+    p = dict(qparams if quantized else params, layers_fuser={"weights": weights})
+    jc, tc = (dataclasses.replace(c, squeeze_layers=True) for c in (jc, tc))
     ids, mask = make_batch()
-    with pytest.raises(NotImplementedError, match="squeeze_layers"):
-        t_forward(params_from_numpy(params, "cpu"), torch.from_numpy(ids), torch.from_numpy(mask),
-                  dataclasses.replace(tc, squeeze_layers=True), 4)
+    want = _j_probs(p, ids, mask, jc, jnp.float32)
+    got = _t_probs(p, ids, mask, tc, torch.float32)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert got[:, :3].std() > 1e-3  # far above the tolerance: the comparison bites
 
 
 def test_llama_tree_through_params_and_quantize_bit_equal(decoder_params):

@@ -158,8 +158,6 @@ def test_head_variants_fp32_match_jax(np_params, head_over):
 
 
 @pytest.mark.parametrize("over,exc", [
-    ({"scorer_type": "mlp"}, NotImplementedError),
-    ({"use_lstm": True}, NotImplementedError),
     ({"architecture_type": "bi-encoder"}, ValueError),
 ])
 def test_unported_features_raise(np_params, over, exc):
@@ -172,17 +170,13 @@ def test_unported_features_raise(np_params, over, exc):
 
 def test_decoder_backbone_raises(np_params):
     """Decoder backbones run (tests/test_torch_llama.py); an unknown backbone
-    and the decoder's unported head features raise."""
+    raises."""
     _, tc = tiny_cfgs()
     ids, mask = make_batch()
     args = (params_from_numpy(np_params[0], "cpu"), torch.from_numpy(ids), torch.from_numpy(mask))
     bad = dataclasses.replace(tc, backbone=dataclasses.replace(tc.backbone, model_type="t5"))
     with pytest.raises(ValueError, match="t5"):
         t_forward(*args, bad, 4)
-    llama = dataclasses.replace(tc, use_lstm=True,
-                                backbone=dataclasses.replace(tc.backbone, model_type="llama"))
-    with pytest.raises(NotImplementedError, match="use_lstm"):
-        InferenceEngine(llama, np_params[0], tcfg.RuntimeConfig(), device="cpu")
 
 
 def test_fuse_qkv_is_math_identical(np_params):

@@ -266,7 +266,8 @@ def test_port_imports_no_jax_and_nothing_of_c_tpu():
     assert out.returncode == 0, out.stderr
     bad, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
-    for name in ("serving", "cli", "utils.eval", "parallel.scheduler"):
+    for name in ("serving", "cli", "utils.eval", "parallel.scheduler", "training.train", "training.data",
+                 "training.checkpoint"):
         assert f"gliclass.c_tpu_torch.{name}" in loaded
 
 

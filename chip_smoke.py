@@ -35,8 +35,8 @@ Phases, in order, each with its wall time; any failure exits non-zero:
    launch counts of K2 and of the attention kernels of the route "auto"
    takes at each forward's (rows, seq) (reset just before the pass, read
    just after; every K2 and K1 launch on tensor cores), a torch.profiler
-   breakdown of device time by kernel, peak device memory, and agreement of
-   the first 8 texts with the same port on the CPU.
+   breakdown of device time by kernel and by forward, peak device memory,
+   and agreement of the first 8 texts with the same port on the CPU.
 4. Weight-only path: the same model and a subset of the job in "int8"; the
    launch counts of K4 (12 per forward) and K3 (every launch of both on
    tensor cores), a torch.profiler breakdown of device time by kernel,
@@ -90,8 +90,18 @@ Phases, in order, each with its wall time; any failure exits non-zero:
     with accum_steps=2 on one batch (the loss must fall; step ms, tokens/s,
     peak memory); no kernel launched, and a kernel wrapper refusing an input
     that requires grad.
-13. One JSON line of kernel records (all ten kernels), the card line, and
-    the final status line.
+13. Model production and speed of light: gliclass-base from
+    init_gliclass_params (a generator from --seed), quantize_tree, written by
+    save_bundle (fp32 and INT8 weights, goldens: the port's fp32 CPU logits
+    on 4 texts) to a temporary directory and read back tensor for tensor;
+    classify_job in "int8-dynamic" from the read-back INT8 tree with the
+    in-memory tree's decisions; the fp32 golden gate on the card (1e-4);
+    per_kernel_report for gliclass-base at [128, 56] and [16, 512] in
+    "int8-dynamic" and "int8" and for a qwen-1.5B layer at [64, 128] (K1'/K2',
+    K3'/K4', K5' counted as launched); speed_of_light of each forward of
+    phase 3's profiled pass against its device time.
+14. One JSON line of kernel records (all ten kernels, bounds from
+    utils.perf.kernel_bound_ms), the card line, and the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
 """
@@ -118,10 +128,6 @@ import torch
 # port's engine sets too.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-# Published H100 SXM peaks (dense): bytes/s of HBM3 and operations/s by type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 SEQ_LADDER = (56, 72, 88, 104, 120, 128, 192, 256, 384, 512)
 
@@ -195,9 +201,11 @@ def fmt_ms(ms: float | None) -> str:
 
 
 def bound_ms(ops: float, op_type: str, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / PEAK_OPS[op_type] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """A kernel's bound on this card (``utils.perf.kernel_bound_ms``: the
+    published peaks of its name)."""
+    from gliclass.c_tpu_torch.utils.perf import kernel_bound_ms
+
+    return kernel_bound_ms(ops, op_type, nbytes, torch.cuda.get_device_name(0))
 
 
 # ---------------------------------------------------------------------------
@@ -1175,28 +1183,50 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
-def profile_job(pipe, job, wall_s: float, span: str | None = None) -> None:
+def profile_job(pipe, job, wall_s: float, span: str | None = None, forward_ms: dict | None = None) -> None:
     """Device time by kernel over one more classify_job pass (torch.profiler),
     and the device's busy share: the kernels' summed time (one stream, so
     they do not overlap) over ``wall_s``, the median wall time of the same
     pass without the profiler. ``span``: a ``record_function`` range whose
-    kernels' device time is reported as a share of the busy time."""
+    kernels' device time is reported as a share of the busy time.
+    ``forward_ms``: filled with {(rows, seq): device ms of a forward of
+    that shape in the pass} (:func:`forward_device_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.classify_job(job)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine, step = pipe.engine, pipe.engine._forward
+    order = []  # (rows, seq) of each forward, in call order
+    if forward_ms is not None:
+        def marked(ids, mask, max_labels):
+            # A one-cycle spin kernel before and after the forward marks its
+            # bounds on the stream: the kernels launched through ctypes have
+            # no host-side op that the profiler could tie to a range.
+            order.append(tuple(ids.shape))
+            torch.cuda._sleep(1)
+            out = step(ids, mask, max_labels)
+            torch.cuda._sleep(1)
+            return out
+
+        engine._forward = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.classify_job(job)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine._forward = step
     # Device-side events only: an operator's row repeats its kernels' time.
     # (A record_function range also shows on the device timeline, as its span.)
     avgs = prof.key_averages()
     rows = sorted(
         ((evt.self_device_time_total / 1e3, evt.count, evt.key) for evt in avgs
-         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0 and evt.key != span),
+         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0 and evt.key != span
+         and "spin_kernel" not in evt.key),
         reverse=True,
     )
+    if forward_ms is not None:
+        forward_device_ms(prof, order, forward_ms)
     if not rows:
         log("   profile: the profiler recorded no device time (not measured)")
         return
@@ -1217,6 +1247,25 @@ def profile_job(pipe, job, wall_s: float, span: str | None = None) -> None:
                 f"pass's device time; its span on the device timeline {held} (profiled pass {wall_ms:.2f} ms)")
 
 
+def forward_device_ms(prof, order: list, forward_ms: dict) -> None:
+    """Each forward's device time: the summed time of the device events
+    between its two spin-kernel marks on the stream (one stream, so in
+    launch order), averaged over the forwards of one (rows, seq)."""
+    from torch.autograd import DeviceType
+
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+    if len(marks) != 2 * len(order):
+        fail(f"profile: {len(marks)} spin-kernel marks on the stream for {len(order)} forwards")
+    per = {}
+    for k, shape in enumerate(order):
+        a, b = marks[2 * k], marks[2 * k + 1]
+        per.setdefault(shape, []).append(sum(e.self_device_time_total for e in dev[a + 1:b]) / 1e3)
+    forward_ms.update({shape: statistics.mean(v) for shape, v in per.items()})
+    log(f"   device time by forward: {', '.join(f'{list(sh)} {ms:.3f} ms' for sh, ms in sorted(forward_ms.items()))}"
+        f" (sum {sum(sum(v) for v in per.values()):.2f} ms)")
+
+
 def hidden_states(engine, batch) -> torch.Tensor:
     """The backbone's output [B, S, H] (fp32, on the host) for a tokenized
     batch, in the engine's precision mode and attention route."""
@@ -1232,7 +1281,8 @@ def hidden_states(engine, batch) -> torch.Tensor:
 
 def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, label: str,
              batch_size: int = 128, hidden_tol: float = 0.1, prob_tol: float = 0.15,
-             profile: bool = False, attn_route: str = "auto", span: str | None = None) -> tuple[dict, list]:
+             profile: bool = False, attn_route: str = "auto", span: str | None = None,
+             forward_ms: dict | None = None) -> tuple[dict, list]:
     """classify_job on the card: a warm pass, then three timed passes; the
     launch counts and the (rows, seq) of every forward of the first timed
     pass; the first ``n_cpu`` texts against the same port on the CPU (the
@@ -1292,7 +1342,7 @@ def run_path(cfg, qparams, tok, job_dict, quant_mode: str, dev, n_cpu: int, labe
     log(f"   forwards: {len(shapes)} (rows x seq: {shapes}); launches: {json.dumps(counts)}")
     log(f"   peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
-        profile_job(pipe, job, wall, span)
+        profile_job(pipe, job, wall, span, forward_ms)
 
     # The same port on the CPU (plain versions) for the first n_cpu texts.
     from gliclass.c_tpu_torch.prompting import pack_prompts
@@ -1986,6 +2036,184 @@ def training(cfg, tok, rng: np.random.Generator, dev) -> None:
         fail("the refused call counted a launch")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: model production and speed of light
+# ---------------------------------------------------------------------------
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def same_tree(label: str, want: dict, got: dict) -> None:
+    """Two parameter trees hold the same keys, and each leaf the same dtype,
+    shape and values."""
+    from gliclass.c_tpu_torch.convert.bundle import flatten_tree
+
+    fw, fg = flatten_tree(want), flatten_tree(got)
+    if sorted(fw) != sorted(fg):
+        fail(f"{label}: keys differ: {sorted(set(fw) ^ set(fg))[:8]}")
+    for k, a in fw.items():
+        b = fg[k]
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{label}: {k} differs ({a.dtype} {a.shape} against {b.dtype} {b.shape})")
+
+
+def model_production(cfg, tok, rng: np.random.Generator, dev, forward_ms: dict) -> None:
+    """Phase 13 on gliclass-base (``cfg``, ``tok``): :func:`bundle_round_trip`,
+    :func:`kernel_reports`, :func:`speed_of_light_report`. The kernels
+    line's bounds come from ``utils.perf.kernel_bound_ms`` (:func:`bound_ms`)."""
+    bundle_round_trip(cfg, tok, rng, dev)
+    kernel_reports(cfg, dev)
+    speed_of_light_report(cfg, forward_ms)
+    log("(d) the kernels line's bound_ms: utils.perf.kernel_bound_ms on the published peaks of "
+        f"{torch.cuda.get_device_name(0)}")
+
+
+def bundle_round_trip(cfg, tok, rng: np.random.Generator, dev) -> None:
+    """(a) gliclass-base from ``init_gliclass_params`` (a generator drawn
+    from ``rng``), INT8 by ``quantize_tree``, written by ``save_bundle``
+    (fp32 and INT8 weights, goldens: the port's fp32 CPU logits on 4 texts)
+    into a temporary directory; read back tensor for tensor; classify_job
+    in "int8-dynamic" from the read-back INT8 tree with the decisions of the
+    in-memory tree; the fp32 golden gate on the card (1e-4)."""
+    import os
+    import tempfile
+
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.convert import bundle as B
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.models.gliclass import gliclass_forward, init_gliclass_params
+    from gliclass.c_tpu_torch.ops.quant import quantize_tree
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+    from gliclass.c_tpu_torch.utils.eval import golden_logit_check
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(int(rng.integers(2**62)))
+    params = _to_numpy(init_gliclass_params(gen, cfg))
+    qparams = quantize_tree(params)
+    n_params = sum(a.size for a in _leaves(params))
+    log(f"(a) gliclass-base by init_gliclass_params: {n_params / 1e6:.1f} M parameters, made and quantized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    job = make_job(rng, 120, 8)
+    texts = job["texts"][:4]
+    rt32 = RuntimeConfig(batch_size=8, max_length=512, compute_dtype="float32", seq_buckets=SEQ_LADDER,
+                         label_buckets=(8,))
+    batch = tok.encode_batch(pack_prompts(texts, [JOB_LABELS], True, cfg.prompt_first), max_length=512)
+    cpu32 = InferenceEngine(cfg, params, rt32, device="cpu")
+    with torch.inference_mode():
+        logits = gliclass_forward(cpu32.params, torch.from_numpy(batch.input_ids), torch.from_numpy(batch.attention_mask),
+                                  cfg, len(JOB_LABELS), torch.float32)
+    del cpu32
+    goldens = [{"texts": texts, "labels": [JOB_LABELS], "same_labels": True, "prompt_first": cfg.prompt_first,
+                "max_length": 512, "logits": np.round(logits.numpy().astype(np.float64), 5).tolist()}]
+    log(f"   goldens: the port's fp32 CPU logits of {len(texts)} texts, in [{logits.min():.4f}, {logits.max():.4f}]")
+
+    with tempfile.TemporaryDirectory(prefix="gliclass_bundle_") as path:
+        t0 = time.perf_counter()
+        B.save_bundle(path, cfg, params, goldens=goldens, int8_params=qparams)
+        wrote = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+        log(f"   save_bundle: {sum(sizes.values())} bytes in {wrote:.2f} s ({json.dumps(sizes)})")
+        t0 = time.perf_counter()
+        cfg_back, p32, p8, g_back = (B.load_config(path), B.load_params(path), B.load_params(path, quantized=True),
+                                     B.load_goldens(path))
+        log(f"   read back in {time.perf_counter() - t0:.2f} s")
+    if cfg_back != cfg or g_back != goldens:
+        fail("bundle: the config or the goldens read back differ from what was written")
+    same_tree("bundle fp32 weights", params, p32)
+    same_tree("bundle INT8 weights", qparams, p8)
+    log(f"   read back tensor for tensor: {len(B.flatten_tree(p32))} fp32 and {len(B.flatten_tree(p8))} INT8-tree "
+        "tensors equal to what was written, config and goldens equal")
+
+    rt = RuntimeConfig(batch_size=128, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
+                       seq_buckets=SEQ_LADDER, label_buckets=(8,))
+    decisions, probs = {}, {}
+    labels = lambda res: [[d["label"] for d in r["decisions"]] for r in res.to_json()]
+    for name, tree in (("in-memory", qparams), ("read-back", p8)):
+        engine = InferenceEngine(cfg, tree, rt, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = ZeroShotClassificationPipeline(engine, tok, rt).classify_job(parse_job(job))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if out.failures or out.probs.shape != (len(job["texts"]), 8) or not np.isfinite(out.probs).all():
+            fail(f"bundle {name} tree: failures {out.failures} or bad probabilities {out.probs.shape}")
+        if counts["fused_ffn_w8a8_tc"] <= 0 or counts["flash_disentangled_attention_tc"] <= 0:
+            fail(f"bundle {name} tree: K1'/K2' not launched ({json.dumps(counts)})")
+        decisions[name], probs[name] = labels(out), out.probs
+        log(f"   classify_job from the {name} INT8 tree, int8-dynamic: {len(job['texts'])} texts in {wall:.3f} s "
+            f"(first pass); K1' {counts['flash_disentangled_attention_tc']}, K2' {counts['fused_ffn_w8a8_tc']} launches")
+        del engine
+    diff = float(np.abs(probs["in-memory"] - probs["read-back"]).max())
+    log(f"   decisions {'equal' if decisions['in-memory'] == decisions['read-back'] else 'differ'}, "
+        f"max |dprob| {diff:.3e}")
+    if decisions["in-memory"] != decisions["read-back"]:
+        fail("bundle: the read-back tree's decisions differ from the in-memory tree's")
+    pipe32 = ZeroShotClassificationPipeline(InferenceEngine(cfg, p32, rt32, device=dev), tok, rt32)
+    worst = golden_logit_check(pipe32, g_back, rt32)
+    log(f"   fp32 golden gate, the card against the CPU's goldens: max |dlogit| {worst:.3e} (tol 1e-4)")
+    if not worst <= 1e-4:
+        fail(f"bundle: fp32 golden gate {worst} above 1e-4")
+    del pipe32, params, qparams, p32, p8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_reports(cfg, dev) -> None:
+    """(b) ``per_kernel_report`` for gliclass-base (``cfg``) at [128, 56]
+    and [16, 512] in "int8-dynamic" and "int8", and for a qwen-1.5B layer at
+    [64, 128] in "int8-dynamic", with K1'/K2' (K3'/K4', K5') launched in
+    each."""
+    from gliclass.c_tpu_torch.config import GLiClassConfig, qwen2_config
+    from gliclass.c_tpu_torch.utils import perf
+
+    name = torch.cuda.get_device_name(0)
+    qb = qwen2_config("1.5b")
+    qcfg = GLiClassConfig(hidden_size=qb.hidden_size, backbone=qb)
+    probes = (("gliclass-base", cfg, 128, 56, "int8-dynamic"), ("gliclass-base", cfg, 16, 512, "int8-dynamic"),
+              ("gliclass-base", cfg, 128, 56, "int8"), ("gliclass-base", cfg, 16, 512, "int8"),
+              ("qwen-1.5B (one layer)", qcfg, 64, 128, "int8-dynamic"))
+    want = {"int8-dynamic": ("flash_disentangled_attention_tc", "fused_ffn_w8a8_tc"),
+            "int8": ("int8_matmul_tc", "fused_ffn_wonly_tc"), "qwen": ("causal_flash_attention_tc",)}
+    log(f"(b) per_kernel_report, one layer's components in bf16 (CUDA events, median of 5 chains of 20; "
+        f"speed of light on the peaks of {name})")
+    for label, c, Bn, S, mode in probes:
+        reset_counts()
+        rows = perf.per_kernel_report(c, Bn, S, mode, device=dev)
+        counts = read_counts()
+        log(f"   {label} [{Bn}, {S}] {mode}:")
+        for line in perf.format_kernel_report(rows).splitlines():
+            log(f"      {line}")
+        for k in want["qwen" if c is qcfg else mode]:
+            if counts[k] <= 0:
+                fail(f"per_kernel_report {label} [{Bn}, {S}] {mode}: {k} launched no time ({json.dumps(counts)})")
+        log(f"      launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+        if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+            fail(f"per_kernel_report {label} [{Bn}, {S}] {mode}: rows {rows}")
+    torch.cuda.empty_cache()
+
+
+def speed_of_light_report(cfg, forward_ms: dict) -> None:
+    """(c) ``speed_of_light`` of each forward of phase 3's profiled pass
+    against its device time."""
+    from gliclass.c_tpu_torch.utils import perf
+
+    if not forward_ms:
+        fail("speed_of_light: phase 3's profiled pass gave no forward a device time")
+    log("(c) speed_of_light of phase 3's profiled pass (gliclass-base int8-dynamic), each forward's device time "
+        "(its device events between two marks on the stream, torch.profiler) against the cost at its [rows, seq]:")
+    for (Bn, S), ms in sorted(forward_ms.items()):
+        r = perf.speed_of_light(cfg, Bn, S, ms / 1e3, quant_mode="int8-dynamic")
+        log(f"   [{Bn}, {S}]: device {ms:.4f} ms, speed of light {r['sol_ms']:.4f} ms ({r['bound_by']}), "
+            f"sol_frac {r['sol_frac']:.4f}; {r['tflops']:.2f} TFLOP/s, {r['hbm_gbps']:.1f} GB/s; "
+            f"GFLOP {json.dumps({k: round(v, 3) for k, v in r['gflops'].items()})}, "
+            f"GB {json.dumps({k: round(v, 4) for k, v in r['gbytes'].items()})}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2045,8 +2273,9 @@ def main() -> int:
         log(f"gliclass-base params: {n_params / 1e6:.1f} M (INT8 layers), made and quantized in "
             f"{time.perf_counter() - t0:.1f} s")
         job = make_job(rng, 384, 16)
+        forward_ms = {}  # device ms of each forward of the profiled pass, by (rows, seq): phase 13
         counts, shapes = run_path(cfg, qparams, tok, job, "int8-dynamic", dev, 8,
-                                  "main path int8-dynamic", profile=True)
+                                  "main path int8-dynamic", profile=True, forward_ms=forward_ms)
         n_fwd = len(shapes)
         expect_launches(counts, "fused_ffn_w8a8", bb.num_hidden_layers * n_fwd, "main path")
         # Every K2 call of the path (H = 768, I = 3072) takes the tensor-core variant.
@@ -2166,6 +2395,9 @@ def main() -> int:
 
     with phase("phase 12: training, gliclass-base (DeBERTa) at full width and depth"):
         training(base[0], base[2], np.random.default_rng([args.seed, 12]), dev)
+
+    with phase("phase 13: model production and speed of light"):
+        model_production(base[0], base[2], np.random.default_rng([args.seed, 13]), dev, forward_ms)
     del base
 
     sources = {

@@ -3,6 +3,7 @@
     python -m gliclass.c_tpu_torch.cli run data.json [prompt_first] --bundle BUNDLE [options]
     python -m gliclass.c_tpu_torch.cli serve --bundle BUNDLE [--warmup] [options]
     python -m gliclass.c_tpu_torch.cli selftest --bundle BUNDLE [options]
+    python -m gliclass.c_tpu_torch.cli convert --model-path DIR --save-path BUNDLE [--quantize]
 
 Flags and output follow ``gliclass.c_tpu.cli``: ``run`` prints the
 reference report, ``Execution time: %f seconds`` (reference main.c:171) and a
@@ -21,9 +22,11 @@ switches both:
 bias, row and tiled run K1 at the lengths their kernels do not take; on the
 card a head width other than 64 takes the score path under every route.
 
-Not ported yet: ``convert`` and ``fetch`` (and so ``--model``), which wait
-for the converter (ROADMAP.md queue 1, item 5), and ``--dp/--tp/--sp``
-other than 1 (queue 1, item 6); each fails with a message saying so.
+``convert`` turns a local HF gliclass checkpoint directory into a bundle on
+the host (it builds the torch reference model through ``transformers`` for
+the goldens). ``fetch`` and ``--model`` download from the hub and stay with
+the JAX package's CLI; ``--dp/--tp/--sp`` other than 1 wait for multi-card
+support (ROADMAP.md queue 1, item 6). Each fails with a message saying so.
 Commands run on the CUDA card; ``main(argv, device="cpu")`` runs them on
 the CPU (the tests do).
 """
@@ -66,9 +69,9 @@ def _resolve_bundle(args) -> str:
         return args.bundle
     if args.model:
         raise SystemExit(
-            "error: --model fetches and converts a checkpoint, which the port cannot do yet "
-            "(ROADMAP.md queue 1, item 5); convert with `python -m gliclass.c_tpu.cli fetch` "
-            "and pass --bundle PATH"
+            "error: --model downloads a checkpoint from the hub, which the port does not do; "
+            "download it, convert it with `convert --model-path DIR --save-path BUNDLE` "
+            "and pass --bundle BUNDLE"
         )
     raise SystemExit("error: pass --bundle PATH or --model HF_NAME")
 
@@ -76,7 +79,7 @@ def _resolve_bundle(args) -> str:
 def _add_runtime_flags(p: argparse.ArgumentParser):
     p.add_argument("--bundle", default=None, help="path to a converted weight bundle")
     p.add_argument("--model", default=None,
-                   help="HF model name (fetch + convert; not ported yet, use --bundle)")
+                   help="HF model name (downloads; refused by the port, use --bundle)")
     p.add_argument("--batch-size", type=int, default=8)  # configs.h:4 default
     p.add_argument("--max-length", type=int, default=2048)  # configs.h:5 default
     p.add_argument("--threshold", type=float, default=0.5)  # configs.h:6 default
@@ -125,9 +128,24 @@ def cmd_run(args, device=None) -> int:
     return 0
 
 
-def cmd_not_ported(args, device=None) -> int:
-    print(f"error: `{args.cmd}` is not ported yet (ROADMAP.md queue 1, item 5); "
-          f"use `python -m gliclass.c_tpu.cli {args.cmd}`", file=sys.stderr)
+def cmd_convert(args, device=None) -> int:
+    """Convert a local HF gliclass checkpoint directory into a weight bundle
+    (on the host: ``device`` is not used). Expects model.safetensors (or
+    pytorch_model.bin), config.json and tokenizer.json in --model-path."""
+    from .convert.convert import convert_checkpoint_dir
+
+    try:
+        convert_checkpoint_dir(args.model_path, args.save_path, args.model_path, quantize=args.quantize)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(f"DONE: bundle written to {args.save_path}")
+    return 0
+
+
+def cmd_fetch(args, device=None) -> int:
+    print("error: `fetch` downloads a checkpoint from the hub, which the port does not do; "
+          "download it, then run `convert --model-path DIR --save-path BUNDLE`", file=sys.stderr)
     return 2
 
 
@@ -237,17 +255,17 @@ def main(argv=None, device=None) -> int:
     _add_runtime_flags(p_run)
     p_run.set_defaults(fn=cmd_run)
 
+    p_conv = sub.add_parser("convert", help="convert a local HF gliclass checkpoint directory to a bundle")
+    p_conv.add_argument("--model-path", required=True, help="checkpoint dir (config, tokenizer, weights)")
+    p_conv.add_argument("--save-path", required=True, help="bundle directory to write")
+    p_conv.add_argument("--quantize", action="store_true", help="also write the INT8 weights")
+    p_conv.set_defaults(fn=cmd_convert)
     # The JAX CLI's flags, so that its command lines fail with the reason.
-    p_conv = sub.add_parser("convert", help="convert an HF gliclass checkpoint (not ported yet)")
-    p_conv.add_argument("--model-path", required=True)
-    p_conv.add_argument("--save-path", required=True)
-    p_conv.add_argument("--quantize", action="store_true")
-    p_conv.set_defaults(fn=cmd_not_ported)
-    p_fetch = sub.add_parser("fetch", help="fetch an HF model and build its bundle (not ported yet)")
+    p_fetch = sub.add_parser("fetch", help="download an HF model (refused: the port does not download)")
     p_fetch.add_argument("model_name")
     p_fetch.add_argument("--no-quantize", action="store_true")
     p_fetch.add_argument("--force", action="store_true")
-    p_fetch.set_defaults(fn=cmd_not_ported)
+    p_fetch.set_defaults(fn=cmd_fetch)
 
     p_serve = sub.add_parser("serve", help="HTTP serving with continuous batching")
     p_serve.add_argument("--host", default="127.0.0.1",

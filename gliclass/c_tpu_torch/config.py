@@ -15,6 +15,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
+import numpy as np
+
 
 # Defaults mirror reference include/configs.h:4-7 (BATCH_SIZE 8, MAX_LENGTH 2048,
 # THRESHOLD 0.5f, NUM_THREADS 8) but are runtime-configurable, not compile-time.
@@ -116,6 +118,64 @@ class RuntimeConfig:
             if n <= b:
                 return b
         return self.label_buckets[-1]
+
+
+def suggest_seq_buckets(
+    lengths,
+    max_length: int = 512,
+    budget: int = 10,
+    granularity: int = 16,
+) -> tuple[int, ...]:
+    """Propose a seq-bucket ladder for a MEASURED prompt-length distribution.
+
+    The JAX package's ladder rule, unchanged: fine-grained buckets
+    (multiples of ``granularity``) through the POPULATED range between the
+    p5 and p95 of the distribution, then a coarse power-of-two-ish tail up
+    to ``max_length`` for stragglers. ``budget`` caps the ladder size:
+    every bucket is one more forward shape (and, on the card, one more set
+    of kernel launch geometries) per (labels, rows) combination.
+
+    Deployment recipe: tokenize a traffic sample (``PromptTokenizer
+    .encode_batch(...).lengths``), pass the lengths here, set
+    ``RuntimeConfig(seq_buckets=...)``. Streaming serving should stay on a
+    coarse ladder instead: fine ladders fragment micro-batches.
+    """
+    L = np.asarray(lengths)
+    if L.size == 0:
+        raise ValueError("lengths is empty")
+    if not (L > 0).any():
+        raise ValueError("lengths must contain positive values")
+    L = np.minimum(L, max_length)
+    g = max(8, int(granularity))
+
+    def up(x: float) -> int:
+        return int(-(-int(x) // g) * g)
+
+    lo = max(g, up(np.quantile(L, 0.05)))
+    # hi >= lo >= g guarantees the coarse-tail loop below always advances
+    # (up(t * 1.5) > t for any t >= g) even for degenerate distributions
+    hi = max(lo, min(max_length, up(np.quantile(L, 0.95))))
+    fine = list(range(lo, hi + 1, g))
+    # coarse tail: double-ish steps covering the p95..max_length stragglers
+    tail = []
+    t = hi
+    while t < max_length:
+        t = min(max_length, up(t * 1.5))
+        tail.append(t)
+    ladder = sorted(set(fine + tail + [max_length]))
+    # trim to budget: drop the fine buckets with the FEWEST samples first
+    # (each removal merges its texts into the next bucket up — least padding
+    # added where the fewest texts live)
+    while len(ladder) > max(2, budget):
+        counts = []
+        prev = 0
+        for b in ladder:
+            counts.append(((L > prev) & (L <= b)).sum())
+            prev = b
+        # never drop the last bucket (the max_length cap)
+        drop = int(np.argmin(counts[:-1]))
+        ladder.pop(drop)
+    return tuple(ladder)
 
 
 @dataclass(frozen=True)

@@ -37,6 +37,7 @@ from ..ops.fused_attention import (
 )
 from ..ops.fused_ffn import fused_ffn
 from ..ops.layers import activation, layer_norm, linear, masked_softmax
+from . import _init
 
 Params = dict[str, Any]
 
@@ -254,13 +255,22 @@ def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
     padded 1-D conv over the embedding output in the compute dtype with fp32
     sums, bias, padded positions zeroed, activation, residual onto layer 0's
     output, LayerNorm, masked again. The kernel is kept as the JAX package
-    keeps it, [k, H_in, H_out]; conv1d takes it as [H_out, H_in, k]."""
+    keeps it, [k, H_in, H_out].
+
+    The conv is the sum over its k taps of shifted [B, S, H_in] @ [H_in,
+    H_out] fp32 products: a plain matmul, so it never goes through cuDNN,
+    whose ``allow_tf32`` (True by default) would round fp32 inputs to TF32's
+    ten mantissa bits."""
     k = cfg.conv_kernel_size
     if k % 2 == 0:
         raise ValueError("conv_kernel_size must be odd (torch same-padding)")
-    x = embed_out.to(compute_dtype).float().transpose(1, 2)  # [B, H, S]
-    w = p["w"].to(compute_dtype).float().permute(2, 1, 0)
-    out = F.conv1d(x, w, padding=(k - 1) // 2).transpose(1, 2) + p["b"].float()
+    S = embed_out.shape[1]
+    pad = (k - 1) // 2
+    x = F.pad(embed_out.to(compute_dtype).float(), (0, 0, pad, pad))  # [B, S + k - 1, H_in]
+    w = p["w"].to(compute_dtype).float()
+    out = p["b"].float() + x[:, :S] @ w[0]
+    for t in range(1, k):
+        out = out + x[:, t : t + S] @ w[t]
     m = attention_mask[..., None].float()
     out = activation(cfg.conv_act)(out * m).to(compute_dtype)
     y = layer_norm(p["ln"], layer0_out + out, cfg.layer_norm_eps)
@@ -338,3 +348,38 @@ def deberta_encode(
         if return_all_layers:
             states.append(x)
     return torch.stack(states) if return_all_layers else x
+
+
+# ---------------------------------------------------------------------------
+# Initialization (random; real weights come from the converter)
+# ---------------------------------------------------------------------------
+def init_deberta_params(generator: torch.Generator, cfg: BackboneConfig, dtype=torch.float32,
+                        device="cpu") -> Params:
+    """Random DeBERTa parameters in the JAX package's tree (its
+    ``init_deberta_params``): per-layer leaves stacked [L, ...]; weights
+    N(0, 0.02), biases 0, LayerNorms (1, 0); ``rel_embeddings`` and
+    ``rel_ln`` with relative attention (``rel_ln`` under ``norm_rel_ebd ==
+    "layer_norm"``), ``conv`` with a conv stem."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    max_rel = cfg.max_relative_positions
+    if max_rel < 1:
+        max_rel = cfg.max_position_embeddings
+    att_span = cfg.position_buckets if cfg.position_buckets > 0 else max_rel
+    g, kw = generator, dict(dtype=dtype, device=device)
+    params: Params = {
+        "embeddings": {"word": _init.normal(g, (cfg.vocab_size, H), **kw), "ln": _init.layer_norm(H, **kw)},
+        "layers": {
+            "attn": {n: _init.dense(g, H, H, lead=(L,), **kw) for n in ("q", "k", "v", "o")}
+            | {"ln": _init.layer_norm(H, lead=(L,), **kw)},
+            "ffn": {"up": _init.dense(g, H, I, lead=(L,), **kw), "down": _init.dense(g, I, H, lead=(L,), **kw),
+                    "ln": _init.layer_norm(H, lead=(L,), **kw)},
+        },
+    }
+    if cfg.relative_attention:
+        params["rel_embeddings"] = _init.normal(g, (2 * att_span, H), **kw)
+        if cfg.norm_rel_ebd == "layer_norm":
+            params["rel_ln"] = _init.layer_norm(H, **kw)
+    if cfg.conv_kernel_size > 0:
+        params["conv"] = {"w": _init.normal(g, (cfg.conv_kernel_size, H, H), **kw),
+                          "b": _init.zeros((H,), **kw), "ln": _init.layer_norm(H, **kw)}
+    return params

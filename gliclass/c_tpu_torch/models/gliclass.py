@@ -14,9 +14,9 @@ from typing import Any
 import torch
 
 from ..config import GLiClassConfig
-from .deberta import deberta_encode
-from .heads import bilstm, fuse_layers, gliclass_head
-from .llama import llama_encode
+from .deberta import deberta_encode, init_deberta_params
+from .heads import bilstm, fuse_layers, gliclass_head, init_head_params, init_lstm_params
+from .llama import init_llama_params, llama_encode
 
 Params = dict[str, Any]
 
@@ -91,3 +91,24 @@ def gliclass_probs(
             params, input_ids, attention_mask, cfg, max_labels, compute_dtype, attn_route
         )
     )
+
+
+def init_gliclass_params(generator: torch.Generator, cfg: GLiClassConfig, dtype=torch.float32,
+                         device="cpu") -> Params:
+    """Random GLiClass parameters in the JAX package's tree (its
+    ``init_gliclass_params``), all drawn from ``generator``: the backbone,
+    the head, the BiLSTM with ``use_lstm`` and the fuser's weights (zeros of
+    [L + 1]) with ``squeeze_layers``."""
+    bb = cfg.backbone
+    if bb.model_type == "deberta-v2":
+        backbone = init_deberta_params(generator, bb, dtype, device)
+    elif bb.model_type in ("llama", "qwen2"):
+        backbone = init_llama_params(generator, bb, dtype, device)
+    else:
+        raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
+    params = {"backbone": backbone, "head": init_head_params(generator, cfg, dtype, device)}
+    if cfg.use_lstm:
+        params["lstm"] = init_lstm_params(generator, cfg.hidden_size, dtype, device)
+    if cfg.squeeze_layers:
+        params["layers_fuser"] = {"weights": torch.zeros((bb.num_hidden_layers + 1,), dtype=dtype, device=device)}
+    return params

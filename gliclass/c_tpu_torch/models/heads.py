@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..config import GLiClassConfig
 from ..ops.layers import activation, linear
+from . import _init
 
 Params = dict[str, Any]
 
@@ -215,3 +216,36 @@ def gliclass_head(
         logits = logits * torch.exp(params["logit_scale"].float())
     logits = torch.where(label_mask, logits.float(), torch.full_like(logits, NEG_LOGIT))
     return logits, label_mask
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+def init_head_params(generator: torch.Generator, cfg: GLiClassConfig, dtype=torch.float32,
+                     device="cpu") -> Params:
+    """Random head parameters in the JAX package's tree (its
+    ``init_head_params``): the two projectors and cfg's scorer, weights
+    N(0, 0.02), biases 0."""
+    H = cfg.hidden_size
+    g, kw = generator, dict(dtype=dtype, device=device)
+    proj = lambda: {"linear_1": _init.dense(g, H, 4 * H, **kw), "linear_2": _init.dense(g, 4 * H, H, **kw)}
+    params: Params = {"text_projector": proj(), "classes_projector": proj()}
+    if cfg.scorer_type == "mlp":
+        params["scorer"] = {"mlp_1": _init.dense(g, 3 * H, H, **kw), "mlp_2": _init.dense(g, H, 1, **kw)}
+    elif cfg.scorer_type == "weighted-dot":
+        params["scorer"] = {"proj_text": _init.dense(g, H, 2 * H, **kw),
+                            "proj_label": _init.dense(g, H, 2 * H, **kw),
+                            "mlp_1": _init.dense(g, 3 * H, H, **kw), "mlp_2": _init.dense(g, H, 1, **kw)}
+    return params
+
+
+def init_lstm_params(generator: torch.Generator, hidden_size: int, dtype=torch.float32,
+                     device="cpu") -> Params:
+    """Random BiLSTM parameters (H -> two H/2 directions) in the JAX
+    package's tree (its ``init_lstm_params``): w_ih [H, 4h], w_hh [h, 4h]
+    ~ N(0, 0.02), b [4h] = 0."""
+    h = hidden_size // 2
+    g, kw = generator, dict(dtype=dtype, device=device)
+    direction = lambda: {"w_ih": _init.normal(g, (hidden_size, 4 * h), **kw),
+                         "w_hh": _init.normal(g, (h, 4 * h), **kw), "b": _init.zeros((4 * h,), **kw)}
+    return {"fwd": direction(), "bwd": direction()}

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ..config import BackboneConfig, check_attn_route
 from ..ops.causal_attention import causal_flash_attention
 from ..ops.layers import linear, masked_softmax, rms_norm
+from . import _init
 from .deberta import _layer, _split_heads
 
 Params = dict[str, Any]
@@ -161,3 +162,32 @@ def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.
         x = x + llama_mlp(p["mlp"], m, compute_dtype)
     final = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
     return torch.stack(states + [final]) if return_all_layers else final
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+def init_llama_params(generator: torch.Generator, cfg: BackboneConfig, dtype=torch.float32,
+                      device="cpu") -> Params:
+    """Random Llama/Qwen2 parameters in the JAX package's tree (its
+    ``init_llama_params``): weights N(0, 0.02), q/k/v biases 0 where the
+    model has them (``attention_bias`` or qwen2), RMSNorm scales 1."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    nh, nkv, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    qkv_bias = cfg.attention_bias or cfg.model_type == "qwen2"
+    g, kw = generator, dict(dtype=dtype, device=device, lead=(L,))
+    norm = lambda: {"scale": _init.ones((L, H), dtype, device)}
+    return {
+        "embeddings": {"word": _init.normal(g, (cfg.vocab_size, H), dtype, device)},
+        "layers": {
+            "attn": {"q": _init.dense(g, H, nh * d, bias=qkv_bias, **kw),
+                     "k": _init.dense(g, H, nkv * d, bias=qkv_bias, **kw),
+                     "v": _init.dense(g, H, nkv * d, bias=qkv_bias, **kw),
+                     "o": _init.dense(g, nh * d, H, bias=False, **kw)},
+            "attn_norm": norm(),
+            "mlp": {"gate": _init.dense(g, H, I, bias=False, **kw), "up": _init.dense(g, H, I, bias=False, **kw),
+                    "down": _init.dense(g, I, H, bias=False, **kw)},
+            "mlp_norm": norm(),
+        },
+        "final_norm": {"scale": _init.ones((H,), dtype, device)},
+    }

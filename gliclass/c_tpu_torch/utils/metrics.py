@@ -1,9 +1,11 @@
-"""Observability: stage timers and throughput counters.
+"""Observability: stage timers, throughput counters, profiler hooks.
 
 The reference's entire instrumentation is one wall-clock interval printed at
 exit (reference main.c:112-113,170-171). Here every pipeline run can carry a
-:class:`StageTimer` breakdown (pack / tokenize / device / decide), and counters
-export as a dict (JSON-able for logs).
+:class:`StageTimer` breakdown (pack / tokenize / device / decide), counters
+export as a dict (JSON-able for logs), and :func:`trace` wraps a block in a
+``torch.profiler`` trace written as a Chrome trace when deep device profiling
+is needed.
 """
 
 from __future__ import annotations
@@ -56,3 +58,24 @@ class StageTimer:
         if "texts" in self.counts:
             line += f" ({self.throughput():.1f} texts/s)"
         return line
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace around a block (host ops, and CUDA kernels
+    when a card is present), written to ``log_dir/trace.json`` in the Chrome
+    trace format (chrome://tracing, Perfetto). Yields the profiler."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's, on a tiny bundle, on CPU:
 ``run`` (report and JSON), ``selftest`` (golden gate, INT8 F1 gate),
-``serve`` wiring and a graceful SIGTERM, the route variable, and the
-commands that are not ported yet failing with a clear message."""
+``serve`` wiring and a graceful SIGTERM, the route variable, ``convert``
+from a local checkpoint dir, and the commands the port refuses (``fetch``,
+``--model``, more than one card) failing with a clear message."""
 
 import json
 import os
@@ -121,14 +122,48 @@ def test_selftest_int8_gate(tiny_bundle, capsys, flag):
     assert len(gate) == 1 and gate[0].endswith("PASS"), out
 
 
-def test_unported_commands_fail_clearly(tiny_bundle, job_file, capsys):
-    for cmd in (["convert", "--model-path", "x", "--save-path", "y"], ["fetch", "some/model"]):
-        assert main(cmd, device="cpu") == 2
-        assert "not ported yet" in capsys.readouterr().err
+def test_unported_commands_fail_clearly(tiny_tokenizer_file, tiny_bundle, job_file, tmp_path, capsys):
+    """`python -m gliclass.c_tpu_torch.cli convert` writes a bundle from a
+    local checkpoint dir, and `selftest --dtype float32` passes on it;
+    `fetch` and `--model` (they download) and --dp/--tp/--sp other than 1
+    still fail with the reason."""
+    import shutil
+
+    from safetensors.torch import save_file
+
+    from gliclass.c_tpu.convert.torch_ref import build_torch_gliclass
+    from gliclass.c_tpu.tokenization import PromptTokenizer
+
+    from test_real_checkpoint import _hf_base_config
+
+    tok = PromptTokenizer.from_file(tiny_tokenizer_file)
+    d = _hf_base_config()
+    d["class_token_index"], d["text_token_index"] = tok.label_token_id, tok.sep_token_id
+    model = build_torch_gliclass(GLiClassConfig.from_dict(d), seed=7)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(d))
+    shutil.copy(tiny_tokenizer_file, ckpt / "tokenizer.json")
+    save_file({f"model.{k}": v.contiguous() for k, v in model.state_dict().items()}, str(ckpt / "model.safetensors"))
+    bundle = str(tmp_path / "bundle")
+    out = subprocess.run([sys.executable, "-m", "gliclass.c_tpu_torch.cli", "convert", "--model-path", str(ckpt),
+                          "--save-path", bundle, "--quantize"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert f"DONE: bundle written to {bundle}" in out.stdout
+    assert sorted(os.listdir(bundle)) == ["config.json", "goldens.json", "tokenizer.json", "weights.safetensors",
+                                          "weights_int8.safetensors"]
+    rc = main(["selftest", "--bundle", bundle, *FLAGS], device="cpu")
+    assert rc == 0 and "(tol 0.001) PASS" in capsys.readouterr().out
+    assert main(["convert", "--model-path", str(tmp_path / "none"), "--save-path", bundle], device="cpu") == 1
+    assert "error:" in capsys.readouterr().err
+
+    assert main(["fetch", "some/model"], device="cpu") == 2
+    assert "downloads a checkpoint from the hub" in capsys.readouterr().err
     for bad in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 6"):
             main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, *bad], device="cpu")
-    with pytest.raises(SystemExit, match="item 5"):
+    with pytest.raises(SystemExit, match="downloads a checkpoint from the hub"):
         main(["run", job_file, "--model", "some/model", *FLAGS], device="cpu")
 
 

@@ -1409,3 +1409,88 @@ def test_kernel_wrapper_refuses_grad_on_card(dev, name):
     with pytest.raises(RuntimeError, match="requires grad"):
         GRAD_CALLS[name](x)
     assert not any(chip_smoke.read_counts().values())
+
+
+CONV_STEM_CODE = r"""
+import json, sys
+import torch
+from gliclass.c_tpu_torch.config import BackboneConfig
+from gliclass.c_tpu_torch.models import deberta
+
+cfg = BackboneConfig(model_type="deberta-v2", vocab_size=128100, hidden_size=1536, num_hidden_layers=4,
+                     num_attention_heads=24, intermediate_size=6144, conv_kernel_size=3, conv_act="gelu")
+g = torch.Generator().manual_seed(0)
+H = cfg.hidden_size
+p = {"w": torch.randn(3, H, H, generator=g) * 0.02, "b": torch.randn(H, generator=g) * 0.01,
+     "ln": {"scale": 1 + 0.05 * torch.randn(H, generator=g), "bias": 0.05 * torch.randn(H, generator=g)}}
+embed = torch.randn(4, 96, H, generator=g)
+layer0 = 0.1 * torch.randn(4, 96, H, generator=g)
+mask = torch.ones(4, 96, dtype=torch.int32)
+mask[1, 50:] = 0
+mask[3, 1:] = 0
+cpu = deberta.conv_layer(p, embed, layer0, mask, cfg, torch.float32)
+on = lambda t: {k: on(v) for k, v in t.items()} if isinstance(t, dict) else t.cuda()
+card = deberta.conv_layer(on(p), embed.cuda(), layer0.cuda(), mask.cuda(), cfg, torch.float32).cpu()
+print(json.dumps({"allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "engine": "gliclass.c_tpu_torch.engine" in sys.modules,
+                  "rel": ((card - cpu).norm() / cpu.norm()).item()}))
+"""
+
+
+def test_conv_stem_fp32_on_card_without_the_engine(dev):
+    """The conv stem at deberta-v2-xlarge's width (H = 1536, k = 3) in fp32,
+    in a process that imported only ``models.deberta`` (so cuDNN's
+    ``allow_tf32`` keeps torch's default, True): the card against the CPU
+    at 1e-4 relative L2."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", CONV_STEM_CODE], cwd=root, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["allow_tf32"] is True and got["engine"] is False
+    assert got["rel"] <= 1e-4, got
+
+
+def test_device_peaks_by_the_cards_name(dev):
+    """The peaks table has this card (looked up by its name), the kernels'
+    bound is computed from it, and a name not in the table raises."""
+    from gliclass.c_tpu_torch.utils import perf
+
+    name = torch.cuda.get_device_name(0)
+    assert perf.device_peaks() is perf.DEVICE_PEAKS[name]
+    peaks = perf.DEVICE_PEAKS[name]
+    assert perf.kernel_bound_ms(2e12, "bf16", 1e9) == (2e12 / peaks["bf16"] * 1e3, "operations")
+    assert perf.kernel_bound_ms(1e9, "int8", 3.35e10) == (3.35e10 / peaks["hbm_bytes_per_s"] * 1e3, "bytes")
+    with pytest.raises(ValueError, match="no published peaks"):
+        perf.device_peaks(name + " (another part)")
+
+
+@pytest.mark.parametrize("quant_mode,kernels", [
+    ("int8-dynamic", ("flash_disentangled_attention_tc", "fused_ffn_w8a8_tc")),
+    ("int8", ("flash_disentangled_attention_tc", "int8_matmul_tc", "fused_ffn_wonly_tc")),
+])
+def test_per_kernel_report_on_card(dev, quant_mode, kernels):
+    """per_kernel_report at gliclass-base's widths on the card: finite rows
+    timed by CUDA events, each within its speed of light, through the
+    tensor-core kernels of the mode."""
+    import chip_smoke
+    from gliclass.c_tpu_torch.config import deberta_v3_config
+    from gliclass.c_tpu_torch.utils import perf
+
+    bb = deberta_v3_config("base")
+    cfg = GLiClassConfig(hidden_size=bb.hidden_size, backbone=bb)
+    chip_smoke.reset_counts()
+    rows = perf.per_kernel_report(cfg, 8, 64, quant_mode, device=dev, iters=4)
+    counts = chip_smoke.read_counts()
+    assert [r["component"] for r in rows] == ["qkv_o_proj", "ffn", "attn_total"]
+    for r in rows:
+        assert r["clock"] == "cuda events" and math.isfinite(r["ms"]) and r["ms"] > 0
+        assert 0 < r["sol_frac"] <= 1, r
+    assert rows[2]["route"] == "flash"
+    for k in kernels:
+        assert counts[k] > 0, counts

@@ -248,12 +248,25 @@ def test_pipeline_call_api(bundle_dir, engine, overlap):
 
 def test_port_imports_no_jax_and_nothing_of_c_tpu():
     """Import the port and every module of it in a fresh interpreter (the
-    serving slice's serving, cli and utils.eval by name, then everything
-    else); no module named jax or jax.*, and none named gliclass.c_tpu or
-    gliclass.c_tpu.* (gliclass.c_tpu_torch itself shares that prefix)."""
+    serving slice's serving, cli and utils.eval by name, the model-production
+    slice's converter, perf model and init functions by name, then
+    everything else); no module named jax or jax.*, and none named
+    gliclass.c_tpu or gliclass.c_tpu.* (gliclass.c_tpu_torch itself shares
+    that prefix)."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import gliclass.c_tpu_torch.serving, gliclass.c_tpu_torch.cli, gliclass.c_tpu_torch.utils.eval\n"
+        "from gliclass.c_tpu_torch.convert.convert import convert_checkpoint_dir, export_bundle\n"
+        "from gliclass.c_tpu_torch.convert.torch_ref import build_torch_gliclass, golden_logits\n"
+        "from gliclass.c_tpu_torch.convert.hf_backbones import convert_deberta_state_dict\n"
+        "from gliclass.c_tpu_torch.convert.bundle import save_bundle, write_safetensors\n"
+        "from gliclass.c_tpu_torch.utils.perf import per_kernel_report, speed_of_light, kernel_bound_ms\n"
+        "from gliclass.c_tpu_torch.utils.metrics import trace\n"
+        "from gliclass.c_tpu_torch.models.deberta import init_deberta_params\n"
+        "from gliclass.c_tpu_torch.models.llama import init_llama_params\n"
+        "from gliclass.c_tpu_torch.models.heads import init_head_params, init_lstm_params\n"
+        "from gliclass.c_tpu_torch.models.gliclass import init_gliclass_params\n"
+        "from gliclass.c_tpu_torch.config import suggest_seq_buckets\n"
         "import gliclass.c_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'gliclass.c_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -267,7 +280,8 @@ def test_port_imports_no_jax_and_nothing_of_c_tpu():
     bad, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
     for name in ("serving", "cli", "utils.eval", "parallel.scheduler", "training.train", "training.data",
-                 "training.checkpoint"):
+                 "training.checkpoint", "convert.convert", "convert.hf_backbones", "convert.torch_ref", "utils.perf",
+                 "utils.metrics", "models.deberta", "models.llama", "models.heads", "models.gliclass"):
         assert f"gliclass.c_tpu_torch.{name}" in loaded
 
 

@@ -100,7 +100,24 @@ Phases, in order, each with its wall time; any failure exits non-zero:
     "int8-dynamic" and "int8" and for a qwen-1.5B layer at [64, 128] (K1'/K2',
     K3'/K4', K5' counted as launched); speed_of_light of each forward of
     phase 3's profiled pass against its device time.
-14. One JSON line of kernel records (all ten kernels, bounds from
+14. Two ranks on one card (data and tensor parallelism; NCCL takes one
+    card per rank, so the ranks, started with the spawn method, talk over
+    gloo, which stages each collective through host memory): phase 3's
+    INT8 tree, the combined head's fp32 tree and a 4-layer qwen-1.5B
+    written to bundles, loaded by each rank through
+    InferenceEngine.from_bundle; classify_job on 128 short texts and 8 of
+    the 512 bucket (the flash route) at (a) tp = 2 int8-dynamic, (b) tp = 2
+    int8, (c) tp = 2 fp32 with INT8 weights, (d) dp = 2 int8-dynamic, and
+    (e) qwen-1.5B at tp = 2: launches per rank and forward (K1' and the
+    split K2' 12, K3'/K4', K5' 4), collectives per forward, texts/s beside
+    one process's and the collectives' share of a pass, probabilities
+    (0.15; fp32 1e-4) and hidden states (0.1; fp32 1e-4) against one
+    process on the card; (f) one fp32 SGD step at [4, 64] at dp = 2 and
+    tp = 2: loss, grad norm and the gathered parameters against one
+    process (1e-4). Then K2' split at s_h alone at tp = 2 widths (h_q equal
+    to the one-rank K2''s, outputs within K2's tolerance), and a one-rank
+    NCCL world (one all-reduce, one forward).
+15. One JSON line of kernel records (all ten kernels, bounds from
     utils.perf.kernel_bound_ms), the card line, and the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
@@ -1171,7 +1188,9 @@ def counters() -> dict:
             "causal_flash_attention_tc": (causal_attention, "launches_tc"),
             "bias_fused_attention_tc": (fused_attention, "launches_bias_tc"),
             "row_disentangled_attention_tc": (fused_attention, "launches_row_tc"),
-            "tiled_attention_tc": (fused_attention, "launches_tiled_tc")}
+            "tiled_attention_tc": (fused_attention, "launches_tiled_tc"),
+            # The K2 calls among them that ran split at s_h over a model group (phase 14).
+            "fused_ffn_w8a8_split": (fused_ffn, "launches_split")}
 
 
 def reset_counts() -> None:
@@ -2214,6 +2233,449 @@ def speed_of_light_report(cfg, forward_ms: dict) -> None:
             f"GB {json.dumps({k: round(v, 4) for k, v in r['gbytes'].items()})}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: two ranks on one card
+# ---------------------------------------------------------------------------
+# The gliclass-base paths of the phase: (label, (dp, tp), quant_mode, compute dtype).
+TWO_RANK_PATHS = (("a", (1, 2), "int8-dynamic", "bfloat16"), ("b", (1, 2), "int8", "bfloat16"),
+                  ("c", (1, 2), "int8", "float32"), ("d", (2, 1), "int8-dynamic", "bfloat16"))
+TWO_RANK_LR = 0.1  # the SGD step of (f)
+
+
+def two_rank_runtime(quant_mode: str, dtype: str, dp: int = 1, tp: int = 1, batch_size: int = 128):
+    """Phase 14's runtime: the flash route, so that every forward runs K1'
+    (phase 3's "auto" takes it at every shape of the job but [8, 512])."""
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+
+    return RuntimeConfig(batch_size=batch_size, max_length=512, compute_dtype=dtype, quant_mode=quant_mode,
+                         seq_buckets=SEQ_LADDER, label_buckets=(8,), attn_route="flash", dp_size=dp, tp_size=tp)
+
+
+def sync() -> None:
+    """Wait for the card (a no-op where the phase is rehearsed on the CPU)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def measure_path(engine, tok, job_dict: dict, batch, hidden: bool) -> dict:
+    """classify_job through ``engine`` (one rank's, or one process's): a warm
+    pass, a counted pass (kernel launches, forwards, collective calls, wall
+    time), a pass with the collectives timed (each synchronized), and the
+    backbone's hidden states of ``batch`` (under the engine's model group)."""
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.parallel import collectives as C
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+
+    job = parse_job(job_dict)
+    forwards = count_forwards(engine)
+    pipe = ZeroShotClassificationPipeline(engine, tok, engine.runtime)
+    pipe.classify_job(job)
+    sync()
+    reset_counts()
+    forwards.clear()
+    C.calls = 0
+    t0 = time.perf_counter()
+    out = pipe.classify_job(job)
+    sync()
+    wall = time.perf_counter() - t0
+    res = {"probs": out.probs, "failures": len(out.failures or []), "wall": wall, "counts": read_counts(),
+           "shapes": list(forwards), "calls": C.calls,
+           "decisions": [[d["label"] for d in r["decisions"]] for r in out.to_json()]}
+    C.timing, C.seconds = True, 0.0
+    try:
+        t0 = time.perf_counter()
+        pipe.classify_job(job)
+        sync()
+        res["timed_wall"], res["coll_s"] = time.perf_counter() - t0, C.seconds
+    finally:
+        C.timing = False
+    if hidden:
+        from gliclass.c_tpu_torch.parallel.collectives import model_parallel
+
+        with model_parallel(engine.mesh.model_group, engine.plan.pairs):
+            res["hidden"] = hidden_states(engine, batch).numpy()
+    return res
+
+
+def two_rank_main(rank: int, world: int, port: int, spec_path: str, out_dir: str) -> None:
+    """One rank of phase 14 (started with the spawn method): gloo over the
+    one card, the paths of :data:`TWO_RANK_PATHS`, qwen-1.5B at tp = 2, the
+    sharded train step at dp = 2 and tp = 2; results to
+    ``out_dir/rank{rank}.pkl``, the trained states' checkpoints beside."""
+    import functools
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from gliclass.c_tpu_torch.convert import bundle as B
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.parallel.distributed import initialize_from_env
+    from gliclass.c_tpu_torch.parallel.mesh import make_mesh
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+    from gliclass.c_tpu_torch.training import train as T
+    from gliclass.c_tpu_torch.training.checkpoint import save_train_state
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    dev = torch.device(spec["device"])
+    initialize_from_env(backend="gloo", device=dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"device": str(dev), "backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    tok = PromptTokenizer(WordTokenizer(spec["vocab"]))
+    for label, (dp, tp), quant, dtype in TWO_RANK_PATHS:
+        mesh = make_mesh(dp, tp, device=dev)
+        engine = InferenceEngine.from_bundle(spec["base"], two_rank_runtime(quant, dtype, dp, tp), mesh=mesh)
+        res[label] = measure_path(engine, tok, spec["job"], spec["batch"], hidden=tp > 1)
+        del engine
+    qtok = PromptTokenizer(WordTokenizer(spec["qwen_vocab"]))
+    engine = InferenceEngine.from_bundle(spec["qwen"], two_rank_runtime("int8-dynamic", "bfloat16", 1, 2, 64),
+                                         mesh=make_mesh(1, 2, device=dev))
+    res["e"] = measure_path(engine, qtok, spec["qwen_job"], spec["qwen_batch"], hidden=True)
+    del engine
+    gc.collect()
+    tcfg, tparams = B.load_config(spec["train"]), B.load_params(spec["train"])
+    sgd = functools.partial(torch.optim.SGD, lr=TWO_RANK_LR)
+    for dp, tp in ((2, 1), (1, 2)):
+        mesh = make_mesh(dp, tp, device=dev)
+        state = T.init_sharded_train_state(tparams, sgd, mesh, tcfg)
+        reset_counts()
+        t1 = time.perf_counter()
+        state, m = T.make_sharded_train_step(tcfg, 8, mesh)(state, *T.shard_batch(mesh, *spec["train_batch"]))
+        res[f"f{dp}x{tp}"] = {**{k: v.item() for k, v in m.items()}, "step_s": time.perf_counter() - t1,
+                              "counts": read_counts()}
+        save_train_state(os.path.join(out_dir, f"train-{dp}x{tp}.pt"), state)
+        del state
+    res["rank_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, spec_path: str, out_dir: str, timeout_s: float) -> list:
+    """Start ``world`` ranks of :func:`two_rank_main` (spawn: this process
+    holds a CUDA context), wait for all of them, and stop every one that is
+    left when one fails or the time runs out; their results."""
+    import multiprocessing as mp
+    import os
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=two_rank_main, args=(r, world, port, spec_path, out_dir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        fail(f"two ranks: exit codes {codes} (None: stopped at the {timeout_s:.0f} s limit)")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def two_ranks(cfg, qparams, tok, rng: np.random.Generator, dev, seed: int, qbb=None) -> None:
+    """Phase 14: data and tensor parallelism, two ranks on the one card over
+    gloo (NCCL takes one card per rank). gliclass-base's INT8 tree (phase
+    3's), the combined-head fp32 tree and a 4-layer qwen-1.5B go to bundles
+    in a temporary directory; the one-process references run here, the
+    ranks load the bundles through ``InferenceEngine.from_bundle``. (a) tp =
+    2 int8-dynamic, (b) tp = 2 int8, (c) tp = 2 fp32 with INT8 weights, (d)
+    dp = 2 int8-dynamic, each classify_job on 128 short texts and 8 of the
+    512 bucket; (e) qwen-1.5B, 4 of 28 layers, tp = 2 int8-dynamic; (f) one
+    fp32 SGD step at [4, 64] at dp = 2 and at tp = 2. Then the split K2'
+    alone at tp = 2 widths, and a one-rank NCCL world. ``qbb``: the decoder
+    (default qwen-1.5B at 4 of its layers)."""
+    import functools
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gliclass.c_tpu_torch.config import qwen2_config
+    from gliclass.c_tpu_torch.convert import bundle as B
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.ops import fused_ffn as FF
+    from gliclass.c_tpu_torch.ops import _build
+    from gliclass.c_tpu_torch.parallel.distributed import initialize_from_env
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+    from gliclass.c_tpu_torch.training import train as T
+    from gliclass.c_tpu_torch.training.data import parse_train_records, train_batches
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gliclass_ranks_")
+    try:
+        # Bundles: phase 3's INT8 tree; the combined head's fp32 tree; qwen-1.5B at 4 layers.
+        base, train, qwen = (os.path.join(tmp, n) for n in ("base", "train", "qwen"))
+        B.save_bundle(base, cfg, {}, int8_params=qparams)
+        tcfg = dataclasses.replace(cfg, **COMBINED_HEAD)
+        tparams = with_head_features(make_params(rng, cfg.backbone, cfg.hidden_size), tcfg, rng)
+        B.save_bundle(train, tcfg, tparams)
+        qbb = qbb or dataclasses.replace(qwen2_config("1.5b"), num_hidden_layers=4)
+        qtok = PromptTokenizer(WordTokenizer(qbb.vocab_size))
+        qcfg = decoder_cfg(qbb, qtok)
+        B.save_bundle(qwen, qcfg, {}, int8_params=make_decoder_params(rng, qbb, qcfg.hidden_size))
+        job, qjob = make_job(rng, 128, 8), make_job(rng, 64, 4)
+        batch = tok.encode_batch(pack_prompts(job["texts"][:8], [JOB_LABELS], True, cfg.prompt_first), max_length=512)
+        qbatch = qtok.encode_batch(pack_prompts(qjob["texts"][:4], [JOB_LABELS], True, qcfg.prompt_first),
+                                   max_length=512)
+        words = [f"w{i}" for i in range(5000)]
+        records = [{"text": " ".join(rng.choice(words, size=int(rng.integers(30, 50)))), "all_labels": JOB_LABELS,
+                    "true_labels": [str(x) for x in rng.choice(JOB_LABELS, size=2, replace=False)]} for _ in range(4)]
+        b = next(train_batches(parse_train_records(records), tok, 4, 8, max_length=64, seq_buckets=(64,)))
+        tbatch = (b.input_ids, b.attention_mask, b.targets, b.target_mask)
+        spec = {"device": str(dev), "base": base, "train": train, "qwen": qwen, "vocab": cfg.backbone.vocab_size,
+                "qwen_vocab": qbb.vocab_size, "job": job, "batch": batch, "qwen_job": qjob, "qwen_batch": qbatch,
+                "train_batch": tbatch}
+        spec_path = os.path.join(tmp, "spec.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump(spec, f)
+        log(f"bundles and inputs written in {time.perf_counter() - t0:.1f} s")
+
+        # One process on the card: the references.
+        t1 = time.perf_counter()
+        ref = {}
+        for label, _, quant, dtype in TWO_RANK_PATHS[:3]:
+            engine = InferenceEngine.from_bundle(base, two_rank_runtime(quant, dtype), device=dev)
+            ref[label] = measure_path(engine, tok, job, batch, hidden=True)
+            del engine
+        ref["d"] = ref["a"]
+        engine = InferenceEngine.from_bundle(qwen, two_rank_runtime("int8-dynamic", "bfloat16", batch_size=64),
+                                             device=dev)
+        ref["e"] = measure_path(engine, qtok, qjob, qbatch, hidden=True)
+        del engine
+        sgd = functools.partial(torch.optim.SGD, lr=TWO_RANK_LR)
+        state = T.init_train_state(tparams, sgd, device=dev)
+        state, m = T.make_train_step(tcfg, 8)(state, *tbatch)
+        ref["f"] = {k: v.item() for k, v in m.items()}
+        ref_params = {k: v.detach().cpu() for k, v in _flat_params(state.params).items()}
+        p0 = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in _flat_params(tparams).items()}
+        del state
+        gc.collect()
+        log(f"one-process references in {time.perf_counter() - t1:.1f} s")
+
+        # Two ranks.
+        t1 = time.perf_counter()
+        ranks = run_ranks(2, spec_path, tmp, 600)
+        rank_wall = time.perf_counter() - t1
+        log(f"two ranks on {ranks[0]['device']} and {ranks[1]['device']} over {ranks[0]['backend']}: "
+            f"{rank_wall:.1f} s with start-up (their work {ranks[0]['rank_s']:.1f} s, {ranks[1]['rank_s']:.1f} s)")
+        check_two_rank_paths(ref, ranks, cfg.backbone.num_hidden_layers, qbb.num_hidden_layers, len(job["texts"]),
+                             len(qjob["texts"]))
+        check_two_rank_training(ref, ref_params, p0, ranks, tmp)
+        del ref_params, p0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split_k2_check(dev, seed)
+    nccl_one_rank(cfg, qparams, tok, batch, dev)
+
+
+def decoder_cfg(bb, tok):
+    from gliclass.c_tpu_torch.config import GLiClassConfig
+
+    return GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
+                          text_token_index=tok.sep_token_id, prompt_first=False, backbone=bb)
+
+
+def _flat_params(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in _flat_params(tree[key], f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def check_two_rank_paths(ref: dict, ranks: list, L: int, Lq: int, n: int, nq: int) -> None:
+    """(a)-(e): launches per rank and forward, collectives, texts/s, and each
+    rank's probabilities and hidden states against the one process."""
+    card = smi_line()
+    want = {"a": {"flash_disentangled_attention_tc": L, "fused_ffn_w8a8_tc": L, "fused_ffn_w8a8_split": L},
+            "b": {"flash_disentangled_attention_tc": L, "fused_ffn_wonly_tc": L},
+            "c": {"flash_disentangled_attention": L, "int8_matmul": None},
+            "d": {"flash_disentangled_attention_tc": L, "fused_ffn_w8a8_tc": L, "fused_ffn_w8a8_split": 0},
+            "e": {"causal_flash_attention_tc": Lq, "fused_ffn_w8a8_split": 0}}
+    names = {"a": "tp=2 int8-dynamic bf16", "b": "tp=2 int8 bf16", "c": "tp=2 fp32, INT8 weights",
+             "d": "dp=2 int8-dynamic bf16", "e": "qwen-1.5B (4 of 28 layers) tp=2 int8-dynamic"}
+    for label in "abcde":
+        one, texts = ref[label], (nq if label == "e" else n)
+        for r, res in enumerate(ranks):
+            got = res[label]
+            nf = len(got["shapes"])
+            if got["failures"] or nf == 0 or got["shapes"] != one["shapes"]:
+                fail(f"({label}) rank {r}: failures {got['failures']}, forwards {got['shapes']} (one process "
+                     f"{one['shapes']})")
+            per = {k: v / nf for k, v in got["counts"].items() if v}
+            for name, w in want[label].items():
+                c = got["counts"][name]
+                if (w is None and c <= 0) or (w is not None and c != w * nf):
+                    fail(f"({label}) rank {r}: {name} launched {c} times over {nf} forwards, expected "
+                         f"{'some' if w is None else w * nf}")
+            if label == "b" and got["counts"]["int8_matmul_tc"] != got["counts"]["int8_matmul"]:
+                fail(f"(b) rank {r}: K3 launches not all on tensor cores ({got['counts']})")
+            if label == "b" and got["counts"]["fused_ffn_wonly"] != L * nf:
+                fail(f"(b) rank {r}: K4 launched {got['counts']['fused_ffn_wonly']} times over {nf} forwards")
+            if label == "e" and got["counts"]["causal_flash_attention"] != Lq * nf:
+                fail(f"(e) rank {r}: K5 launched {got['counts']['causal_flash_attention']} times over {nf} forwards")
+            dprob = float(np.abs(got["probs"] - one["probs"]).max())
+            ndiff = sum(a != b for a, b in zip(got["decisions"], one["decisions"]))
+            line = (f"({label}) {names[label]}, rank {r}: {nf} forwards, per forward {json.dumps(per)}, "
+                    f"{got['calls'] / nf:.1f} collectives; max|dprob| vs one process {dprob:.3e}; "
+                    f"{ndiff} of {texts} texts' decisions differ")
+            prob_tol = 1e-4 if label == "c" else 0.15
+            if "hidden" in got:
+                h, h1 = got["hidden"], one["hidden"]
+                herr = rel_l2(h, h1)
+                htol = 1e-4 if label == "c" else 0.1
+                line += f"; hidden states rel L2 {herr:.3e} (tol {htol:g})"
+                if not herr <= htol:
+                    fail(f"({label}) rank {r}: hidden states differ from one process by {herr} (relative)")
+            log(line)
+            if not dprob <= prob_tol:
+                fail(f"({label}) rank {r}: probabilities differ from one process by {dprob} (tol {prob_tol})")
+            if r and not np.array_equal(got["probs"], ranks[0][label]["probs"]):
+                fail(f"({label}): the ranks' gathered probabilities differ")
+        g = ranks[0][label]
+        log(f"    ({label}) texts/s: two ranks {texts / g['wall']:.1f} (rank 0's pass {g['wall']:.3f} s), one process "
+            f"{texts / one['wall']:.1f} ({one['wall']:.3f} s); collectives {g['coll_s']:.3f} s = "
+            f"{100 * g['coll_s'] / g['timed_wall']:.1f}% of a {g['timed_wall']:.3f} s pass with each one synchronized; "
+            f"{card}; gloo on one card stages each collective through host memory and says nothing of NCCL over "
+            "NVLink")
+
+
+def check_two_rank_training(ref: dict, ref_params: dict, p0: dict, ranks: list, tmp: str) -> None:
+    """(f): each rank's loss and grad norm, and the gathered parameters
+    (the checkpoint rank 0 wrote), against the one-process step, 1e-4
+    relative; no kernel launched."""
+    import os
+
+    for dp, tp in ((2, 1), (1, 2)):
+        key = f"f{dp}x{tp}"
+        for r, res in enumerate(ranks):
+            m = res[key]
+            rl, rg = (abs(m[k] - ref["f"][k]) / abs(ref["f"][k]) for k in ("loss", "grad_norm"))
+            log(f"(f) dp={dp} tp={tp} rank {r}: loss {m['loss']!r} (one process {ref['f']['loss']!r}, rel {rl:.2e}), "
+                f"grad norm {m['grad_norm']!r} (rel {rg:.2e}), step {m['step_s']:.2f} s")
+            if not (rl <= 1e-4 and rg <= 1e-4):
+                fail(f"(f) dp={dp} tp={tp} rank {r}: loss or grad norm differ from one process ({rl}, {rg})")
+            if any(m["counts"].values()):
+                fail(f"(f) dp={dp} tp={tp}: the train step launched kernels {m['counts']}")
+        saved = torch.load(os.path.join(tmp, f"train-{dp}x{tp}.pt"), map_location="cpu", weights_only=True)["params"]
+        if saved.keys() != ref_params.keys():
+            fail(f"(f) dp={dp} tp={tp}: the checkpoint's tree differs from one process's")
+        perr = max(rel_l2(saved[k].numpy(), ref_params[k].numpy()) for k in ref_params)
+        uerr = max(rel_l2((saved[k] - p0[k]).numpy(), (ref_params[k] - p0[k]).numpy())
+                   for k in ref_params if (ref_params[k] - p0[k]).abs().max() > 0)
+        log(f"(f) dp={dp} tp={tp}: gathered parameters rel L2 {perr:.2e} (tol 1e-4, worst leaf); their SGD update "
+            f"(lr {TWO_RANK_LR}) rel L2 {uerr:.2e} (worst leaf)")
+        if not perr <= 1e-4:
+            fail(f"(f) dp={dp} tp={tp}: gathered parameters differ from one process's by {perr}")
+
+
+def split_k2_check(dev, seed: int) -> None:
+    """K2' split at s_h at tp = 2 widths (M = 8192, H = 768, I = 3072 in two
+    halves of 1536): the halves' h_q, concatenated, equal the one-rank
+    K2''s (its scratch); the summed partial outputs and the bias, in bf16,
+    within phase 2's K2 tolerance of the one-rank output."""
+    from gliclass.c_tpu_torch.ops import _build
+    from gliclass.c_tpu_torch.ops import fused_ffn as FF
+    from gliclass.c_tpu_torch.ops.quant import quantize_weight
+
+    M, H, I = 8192, 768, 3072
+    rng = np.random.default_rng([seed, 14])
+    wu, su = quantize_weight(rng.normal(0, 0.02, (H, I)).astype(np.float32))
+    wd, sd = quantize_weight(rng.normal(0, 0.02, (I, H)).astype(np.float32))
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32)).to(dev, torch.bfloat16)
+    wu, su, wd, sd = c(wu), c(su), c(wd), c(sd)
+    bu, bd = c(rng.normal(0, 0.02, I).astype(np.float32)), c(rng.normal(0, 0.02, H).astype(np.float32))
+    out = torch.empty_like(x)
+    args, (i8, _f32) = FF.w8a8_tc_args(x, FF.nk_weight(wu), su, bu, FF.nk_weight(wd), sd, bd, out)
+    _build.check(_build.lib().gct_fused_ffn_w8a8_tc(*args), "gct_fused_ffn_w8a8_tc")
+    cols = [slice(0, I // 2), slice(I // 2, I)]
+    ups = [FF.w8a8_tc_up(x, FF.nk_weight(wu[:, cs]), su[cs].contiguous(), bu[cs].contiguous()) for cs in cols]
+    sh = torch.maximum(ups[0][1], ups[1][1])  # what the all-reduce MAX over the model group gives
+    downs = [FF.w8a8_tc_down(h, sh.clone(), FF.nk_weight(wd[cs]), sd) for (h, _, _), cs in zip(ups, cols)]
+    y = (downs[0][0] + downs[1][0] + bd).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    hq_equal = torch.equal(torch.cat([hq for _, hq in downs], dim=-1).reshape(-1), i8[M * H:])
+    ref = out.float()
+    tol = 4 * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # as phase 2's K2 check
+    err = (y.float() - ref).abs().max().item()
+    log(f"split K2' at [{M}, {H}], I = {I} in two halves of {I // 2}: h_q {'equal' if hq_equal else 'DIFFERS'} to "
+        f"the one-rank K2''s; summed outputs max|err| {err:.3e} (tol {tol:.3e}); "
+        f"{int((y != out).sum())} of {y.numel()} outputs differ in bf16")
+    if not hq_equal or not err <= tol:
+        fail("split K2': the halves disagree with the one-rank kernel")
+
+
+def nccl_one_rank(cfg, qparams, tok, batch, dev) -> None:
+    """A one-rank NCCL world through initialize_from_env (the card's default
+    backend): one all-reduce and one forward, then the world is closed."""
+    import os
+
+    import torch.distributed as dist
+
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.parallel.distributed import initialize_from_env
+
+    keys = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    try:
+        if not initialize_from_env():
+            fail("nccl: initialize_from_env found no launcher variables")
+        t = torch.full((4,), 3.0, device=dev)
+        dist.all_reduce(t)
+        engine = InferenceEngine(cfg, qparams, two_rank_runtime("int8-dynamic", "bfloat16"), device=dev)
+        probs = engine.run(batch, 8)
+        ok = dist.get_backend() == "nccl" and t.tolist() == [3.0] * 4 and np.isfinite(probs).all()
+        log(f"one-rank world: backend {dist.get_backend()}, all-reduce {t.tolist()}, a forward of "
+            f"{list(batch.input_ids.shape)}: probabilities {probs.shape} in [{probs.min():.3f}, {probs.max():.3f}]")
+        if not ok:
+            fail("nccl: the one-rank world's all-reduce or forward is wrong")
+        del engine
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2398,6 +2860,9 @@ def main() -> int:
 
     with phase("phase 13: model production and speed of light"):
         model_production(base[0], base[2], np.random.default_rng([args.seed, 13]), dev, forward_ms)
+
+    with phase("phase 14: two ranks on one card, data and tensor parallelism over gloo"):
+        two_ranks(*base, np.random.default_rng([args.seed, 14]), dev, args.seed)
     del base
 
     sources = {

@@ -7,8 +7,9 @@ reads the same weight bundles, runs the same forward pass and honours the
 same batch-job contract (``ZeroShotClassificationPipeline.classify_job``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 on CPU tensors each kernel wrapper runs its plain PyTorch version. The
-trainer (``training/``) fine-tunes on one device through the plain
-formulations.
+trainer (``training/``) fine-tunes through the plain formulations. Both run
+on one device or, over ``torch.distributed``, with data and tensor
+parallelism (``parallel/``).
 """
 
 from .config import BackboneConfig, GLiClassConfig, RuntimeConfig

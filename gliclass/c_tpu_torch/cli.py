@@ -25,16 +25,24 @@ card a head width other than 64 takes the score path under every route.
 ``convert`` turns a local HF gliclass checkpoint directory into a bundle on
 the host (it builds the torch reference model through ``transformers`` for
 the goldens). ``fetch`` and ``--model`` download from the hub and stay with
-the JAX package's CLI; ``--dp/--tp/--sp`` other than 1 wait for multi-card
-support (ROADMAP.md queue 1, item 6). Each fails with a message saying so.
-Commands run on the CUDA card; ``main(argv, device="cpu")`` runs them on
-the CPU (the tests do).
+the JAX package's CLI. Each fails with a message saying so.
+
+``run`` and ``selftest`` take ``--dp/--tp`` over ranks launched with the
+JAX package's variables or torchrun's (``parallel.distributed.
+initialize_from_env``, called at entry): every rank runs the command in
+step, and global rank 0 prints. ``--dp/--tp`` other than 1 without such a
+launch are refused; so are ``serve`` over a multi-rank mesh (ROADMAP.md
+queue 1, item 7) and ``--sp`` other than 1 (item 8). Commands run on the
+CUDA card; ``main(argv, device="cpu")`` runs them on the CPU (the tests
+do).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import signal
@@ -47,12 +55,20 @@ from .data import load_job, string_to_bool
 
 
 def _runtime_from_args(args) -> RuntimeConfig:
-    for flag in ("dp", "tp", "sp"):
-        if getattr(args, flag) != 1:
-            raise SystemExit(
-                f"error: --{flag} {getattr(args, flag)}: the port runs on one card; "
-                "multi-card meshes are not ported yet (ROADMAP.md queue 1, item 6)"
-            )
+    import torch.distributed as dist
+
+    from .parallel.distributed import LAUNCHER_VARS
+
+    if args.sp != 1:
+        raise SystemExit(
+            f"error: --sp {args.sp}: sequence parallelism is not ported (ROADMAP.md queue 1, item 8)"
+        )
+    n = args.dp * args.tp
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n != world:
+        how = (f"launch {n} processes with {LAUNCHER_VARS} set" if world == 1
+               else f"the launch has {world} ranks")
+        raise SystemExit(f"error: --dp {args.dp} --tp {args.tp} needs {n} ranks: {how}")
     return RuntimeConfig(
         batch_size=args.batch_size,
         max_length=args.max_length,
@@ -61,6 +77,8 @@ def _runtime_from_args(args) -> RuntimeConfig:
         quant_mode="int8-dynamic" if args.int8_dynamic else ("int8" if args.int8 else "none"),
         tokenizer_workers=args.workers,
         attn_route=os.environ.get("GLICLASS_TPU_ATTN_ROUTE", "auto"),
+        dp_size=args.dp,
+        tp_size=args.tp,
     )
 
 
@@ -88,8 +106,8 @@ def _add_runtime_flags(p: argparse.ArgumentParser):
     p.add_argument("--int8-dynamic", action="store_true",
                    help="w8a8: INT8 weight bundle + dynamic per-token INT8 activations "
                    "(the reference's ONNX dynamic-quantization mode)")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (1 only)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (1 only)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (dp x tp launched ranks)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (dp x tp launched ranks)")
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (1 only)")
     p.add_argument("--workers", type=int, default=8, help="tokenizer threads")
 
@@ -112,7 +130,7 @@ def cmd_run(args, device=None) -> int:
     print(f"Throughput: {job.num_texts / elapsed:.1f} texts/s")
     if args.verbose and out.timings:
         print(f"Stages: {json.dumps(out.timings)}", file=sys.stderr)
-    if args.json_out:
+    if args.json_out and _rank() == 0:
         with open(args.json_out, "w") as f:
             json.dump(out.to_json(), f, indent=2)
         print(f"Results written to {args.json_out}")
@@ -156,6 +174,11 @@ def cmd_serve(args, device=None) -> int:
     from .serving import GLiClassServer
     from .tokenization import PromptTokenizer
 
+    if args.dp * args.tp != 1:
+        raise SystemExit(
+            f"error: serve --dp {args.dp} --tp {args.tp}: serving over a multi-rank mesh is not ported "
+            "(ROADMAP.md queue 1, item 7); run one server per card"
+        )
     runtime = _runtime_from_args(args)
     bundle_path = _resolve_bundle(args)
     engine = InferenceEngine.from_bundle(bundle_path, runtime, device)
@@ -293,7 +316,27 @@ def main(argv=None, device=None) -> int:
     p_self.set_defaults(fn=cmd_selftest)
 
     args = parser.parse_args(argv)
-    return args.fn(args, device=device)
+    if args.fn not in (cmd_run, cmd_selftest):
+        return args.fn(args, device=device)
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize_from_env
+
+    owned = not dist.is_initialized() and initialize_from_env(device=device)
+    try:
+        # Every rank runs the command; global rank 0 prints.
+        quiet = contextlib.redirect_stdout(io.StringIO()) if _rank() else contextlib.nullcontext()
+        with quiet:
+            return args.fn(args, device=device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 if __name__ == "__main__":

@@ -64,9 +64,10 @@ class RuntimeConfig:
     # int8xint8 products — the reference's ONNX dynamic-quantization
     # execution mode, DynamicQuantizeLinear+MatMulInteger)
     quant_mode: str = "none"
-    # Mesh axes sizes of the JAX package. The port targets one card: these
-    # fields stay so shared runtime configs parse, and the engine refuses any
-    # value other than 1.
+    # Mesh axes sizes (data, tensor, sequence parallel), as in the JAX
+    # package: the engine runs over dp_size x tp_size ranks of an initialised
+    # torch.distributed world (parallel/mesh.py); sp_size other than 1 is
+    # refused (ROADMAP.md queue 1, item 8).
     dp_size: int = 1
     tp_size: int = 1
     sp_size: int = 1

@@ -49,3 +49,38 @@ extern "C" int gct_fused_ffn_w8a8_tc(const void* x, const void* wtu, const void*
   if (rc == 0) rc = s8mm::launch<s8mm::Identity, __nv_bfloat16>(hq, wtd, sh, sd, bd, out, nullptr, M, H, I, st);
   return rc;
 }
+
+// The same four launches split at s_h, for tensor parallelism (ops/fused_ffn.py
+// fused_ffn_w8a8 with a model group): each rank holds I/tp columns of W_up and
+// rows of W_down, and a row's int8 scale of h needs the absmax of the whole
+// row, which no rank holds. The up half ends with each row's max |h| of this
+// rank's columns in sh; the caller takes its maximum over the model group;
+// the down half quantises h with it (the one-rank K2's h_q, bit for bit) and
+// gives this rank's partial sums of y, which the caller sums over the group.
+// Called in turn with the same arguments on one rank, the halves give
+// gct_fused_ffn_w8a8_tc's bits.
+
+// Launches 1-2: x_q, s_x = row_quant(x) (sh zeroed), h = gelu_tanh(...) with
+// each row's max |h| folded into sh. Arguments as gct_fused_ffn_w8a8_tc's.
+extern "C" int gct_fused_ffn_w8a8_tc_up(const void* x, const void* wtu, const void* su, const void* bu, void* xq,
+                                        void* sx, void* h, void* sh, int M, int H, int I, void* stream) {
+  if (H % 16 || I % 16 || !bu) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = s8mm::row_quant<__nv_bfloat16>(x, xq, sx, M, H, false, sh, st);
+  if (rc == 0) rc = s8mm::launch<s8mm::Gelu, float>(xq, wtu, sx, su, bu, h, sh, M, I, H, st);
+  return rc;
+}
+
+// Launches 3-4: h_q, s_h = row_quant(h) with the rows' absmax read from sh
+// (its scales written back there); out = ((acc(h_q, W_dn) * s_h) * s_dn)
+// (+ bd where bd is not null), [M, H] bf16, or fp32 with out_f32 (the
+// partial sums a rank adds up in fp32).
+extern "C" int gct_fused_ffn_w8a8_tc_down(const void* h, const void* wtd, const void* sd, const void* bd, void* hq,
+                                          void* sh, void* out, int out_f32, int M, int H, int I, void* stream) {
+  if (H % 16 || I % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = s8mm::row_quant<float>(h, hq, sh, M, I, true, nullptr, st);
+  if (rc != 0) return rc;
+  if (out_f32) return s8mm::launch<s8mm::Identity, float>(hq, wtd, sh, sd, bd, out, nullptr, M, H, I, st);
+  return s8mm::launch<s8mm::Identity, __nv_bfloat16>(hq, wtd, sh, sd, bd, out, nullptr, M, H, I, st);
+}

@@ -8,6 +8,14 @@ current CUDA stream and the host syncs only when it reads the probabilities.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do); with no GPU and no explicit device it raises rather than fall back.
+
+Over a mesh of ``dp * tp`` ranks (``parallel.mesh``; ``runtime.dp_size`` and
+``tp_size`` over an initialised world) every rank builds the same engine and
+calls the same entry with the same inputs (SPMD, the JAX package's
+multi-process lockstep). Each holds its shards of the model
+(``parallel.sharding``), runs its contiguous slice of the batch rows (the
+row bucket is a multiple of dp), and gathers the whole [B, L]
+probabilities over its data group, as JAX's replicated outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from .convert.params import params_from_numpy
 from .models.gliclass import gliclass_probs
 from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
+from .parallel.collectives import all_gather_rows, model_parallel
+from .parallel.mesh import Mesh, make_mesh, single_device_mesh
+from .parallel.sharding import apply_plan, shard_plan
 from .tokenization import TokenizedBatch
 
 # fp32 matmuls and convolutions run in full fp32 on the card (TF32 would keep
@@ -103,17 +114,33 @@ class InferenceEngine:
         params: Params,
         runtime: RuntimeConfig | None = None,
         device=None,
+        mesh: Mesh | None = None,
     ):
+        """``mesh``: this rank's mesh; by default one of ``runtime.dp_size``
+        x ``runtime.tp_size`` ranks over the initialised world (a single
+        device when both are 1). The tree is sharded before q/k/v are fused
+        and before the [N, K] FFN weights are made."""
         self.cfg = cfg
         self.runtime = runtime or RuntimeConfig()
         rt = self.runtime
-        if (rt.dp_size, rt.tp_size, rt.sp_size) != (1, 1, 1):
-            raise ValueError("the port runs on one card: dp_size, tp_size and sp_size must be 1")
-        self.device = resolve_device(device)
+        if rt.sp_size != 1:
+            raise ValueError(
+                f"sp_size={rt.sp_size}: sequence parallelism is not ported (ROADMAP.md queue 1, item 8)"
+            )
+        if mesh is None:
+            dev = resolve_device(device)
+            n = rt.dp_size * rt.tp_size
+            mesh = single_device_mesh(dev) if n == 1 else make_mesh(rt.dp_size, rt.tp_size, device=dev)
+        self.mesh = mesh
+        self.device = mesh.device if device is None else resolve_device(device)
         self.compute_dtype = _DTYPES[rt.compute_dtype]
         # w8a8 (dynamic per-row INT8 activations on INT8 weights):
         # "int8-dynamic" mirrors the reference's ONNX dynamic quantization.
         self._act_quant = rt.quant_mode == "int8-dynamic"
+        self.plan = shard_plan(params, mesh.tp, cfg)
+        if mesh.tp > 1:
+            # Cut on the host, then place only this rank's shards.
+            params = apply_plan(_place(params, torch.device("cpu")), self.plan, mesh.model_rank)
         params = _place(params, self.device)
         if self._act_quant and self.device.type == "cuda":
             # The [N, K] FFN weights that K2's tensor-core variant reads, made once.
@@ -124,11 +151,16 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def _forward(self, ids: torch.Tensor, mask: torch.Tensor, max_labels: int) -> torch.Tensor:
-        with torch.inference_mode(), act_quant(self._act_quant):
-            return gliclass_probs(
+        m = self.mesh
+        with torch.inference_mode(), act_quant(self._act_quant), model_parallel(m.model_group, self.plan.pairs):
+            if m.dp > 1:  # this data rank's contiguous rows
+                n = ids.shape[0] // m.dp
+                ids, mask = ids[m.data_rank * n:(m.data_rank + 1) * n], mask[m.data_rank * n:(m.data_rank + 1) * n]
+            probs = gliclass_probs(
                 self.params, ids, mask, self.cfg, max_labels, self.compute_dtype,
                 self.runtime.attn_route,
             )
+            return all_gather_rows(probs, m.data_group)
 
     def _device_inputs(self, ids: np.ndarray, mask: np.ndarray):
         return (
@@ -139,16 +171,19 @@ class InferenceEngine:
     def _row_bucket(self, n: int) -> int:
         """Pad target for the batch dimension: the next power of two, clamped
         at ``runtime.batch_size`` (a full batch never pads past itself; sizes
-        above batch_size keep their own count). Bounds the variety of row
-        counts to log2(batch_size) per (seq, labels) bucket; padded rows are
-        fully masked and cost only device time."""
+        above batch_size keep their own count), rounded up to a multiple of
+        dp. Bounds the variety of row counts to log2(batch_size) per (seq,
+        labels) bucket; padded rows are fully masked and cost only device
+        time."""
         bs = self.runtime.batch_size
         if n >= bs:
-            return n
-        p = 1
-        while p < n:
-            p *= 2
-        return min(p, bs)
+            target = n
+        else:
+            p = 1
+            while p < n:
+                p *= 2
+            target = min(p, bs)
+        return -(-target // self.mesh.dp) * self.mesh.dp
 
     def _pad_batch(self, batch: TokenizedBatch) -> tuple[np.ndarray, np.ndarray, int]:
         """Pad the batch dim to the row bucket; padded rows are masked except
@@ -237,7 +272,8 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_bundle(cls, bundle_path: str, runtime: RuntimeConfig | None = None, device=None) -> "InferenceEngine":
+    def from_bundle(cls, bundle_path: str, runtime: RuntimeConfig | None = None, device=None,
+                    mesh: Mesh | None = None) -> "InferenceEngine":
         from .convert import bundle as B
 
         runtime = runtime or RuntimeConfig()
@@ -245,4 +281,4 @@ class InferenceEngine:
         params = B.load_params(
             bundle_path, quantized=runtime.quant_mode in ("int8", "int8-dynamic")
         )
-        return cls(cfg, params, runtime, device)
+        return cls(cfg, params, runtime, device, mesh)

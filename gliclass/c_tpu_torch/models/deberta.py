@@ -16,6 +16,14 @@ axis products skewed by :func:`rel_to_abs`, pair mask): the reference the
 tests hold the kernel routes against, the path of the "table"/"xla" routes,
 and the path of configurations outside the kernel routes (one of c2p/p2c,
 or no relative attention).
+
+Under tensor parallelism (``parallel.collectives.model_parallel``) each rank
+holds its own heads of q/k/v and the position projections and the matching
+rows of o, and its own columns of the FFN's intermediate: the head count
+comes from the local projection's width, and each attention and FFN block
+ends with the sum over the model group (``ops.layers.row_linear``).
+LayerNorms, embeddings, the relative embeddings and the conv stem are
+replicated.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ from ..ops.fused_attention import (
     tiled_bias_attention,
 )
 from ..ops.fused_ffn import fused_ffn
-from ..ops.layers import activation, layer_norm, linear, masked_softmax
+from ..ops.layers import activation, layer_norm, linear, masked_softmax, row_linear
+from ..parallel.collectives import copy_to_model, tp_group
 from . import _init
 
 Params = dict[str, Any]
@@ -112,18 +121,22 @@ def _merge_heads(ctx: torch.Tensor) -> torch.Tensor:
     return ctx.transpose(1, 2).reshape(B, S, h * d)
 
 
-def _qkv(p_attn: Params, x: torch.Tensor, nh: int, compute_dtype):
+def _qkv(p_attn: Params, x: torch.Tensor, head_dim: int, compute_dtype):
+    """q, k, v [B, h, S, d], h the heads of the projection's width (this
+    rank's under tensor parallelism)."""
     if "qkv" in p_attn:
         # One [H, 3H] projection (engine.fuse_qkv_params); q/k/v are views.
         qkv = linear(p_attn["qkv"], x, compute_dtype)
         Ho = qkv.shape[-1] // 3
+        nh = Ho // head_dim
         return (
             _split_heads(qkv[..., :Ho], nh),
             _split_heads(qkv[..., Ho : 2 * Ho], nh),
             _split_heads(qkv[..., 2 * Ho :], nh),
         )
     return tuple(
-        _split_heads(linear(p_attn[n], x, compute_dtype), nh) for n in ("q", "k", "v")
+        _split_heads(y, y.shape[-1] // head_dim)
+        for y in (linear(p_attn[n], x, compute_dtype) for n in ("q", "k", "v"))
     )
 
 
@@ -166,9 +179,11 @@ def disentangled_attention(
 
     c2p_cols/p2c_cols: [2S-1] int64 rows of the projected position table per
     relative offset (:func:`rel_bias_columns`); key_mask: [B, S] int32."""
-    nh = cfg.num_attention_heads
+    group = tp_group("attn")
+    x, rel_emb = copy_to_model(x, group), copy_to_model(rel_emb, group)
     scale = math.sqrt(cfg.head_dim * (1 + len(cfg.pos_att_type)))
-    q, k, v = _qkv(p_attn, x, nh, compute_dtype)
+    q, k, v = _qkv(p_attn, x, cfg.head_dim, compute_dtype)
+    nh = q.shape[1]
     pos_q_flat, pos_k_flat = _pos_qk(p_attn, rel_emb, cfg, compute_dtype)
     pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols).contiguous()
     pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols).contiguous()
@@ -183,7 +198,7 @@ def disentangled_attention(
         ctx = row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
     else:
         ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
-    return linear(p_attn["o"], _merge_heads(ctx), compute_dtype)
+    return row_linear(p_attn["o"], _merge_heads(ctx), compute_dtype, group)
 
 
 def score_attention(
@@ -199,9 +214,11 @@ def score_attention(
     """The materialized-score formulation (the JAX package's XLA path):
     [B, h, S, S] scores, relative-axis c2p/p2c skewed by :func:`rel_to_abs`,
     pair mask at finfo.min (fp32) or -1e4 (reduced precision), softmax."""
-    nh = cfg.num_attention_heads
+    group = tp_group("attn")
+    x, rel_emb = copy_to_model(x, group), copy_to_model(rel_emb, group)
     scale = math.sqrt(cfg.head_dim * (1 + len(cfg.pos_att_type)))
-    q, k, v = _qkv(p_attn, x, nh, compute_dtype)
+    q, k, v = _qkv(p_attn, x, cfg.head_dim, compute_dtype)
+    nh = q.shape[1]
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
     scores = ((q.float() @ k.float().transpose(-1, -2)).to(score_dtype) / scale).to(score_dtype)
     if cfg.relative_attention:
@@ -218,7 +235,7 @@ def score_attention(
     scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, neg))
     probs = masked_softmax(scores).to(compute_dtype)
     ctx = (probs.float() @ v.float()).to(compute_dtype)
-    return linear(p_attn["o"], _merge_heads(ctx), compute_dtype)
+    return row_linear(p_attn["o"], _merge_heads(ctx), compute_dtype, group)
 
 
 def encoder_layer(
@@ -244,7 +261,7 @@ def encoder_layer(
             p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route
         )
     x = layer_norm(p["attn"]["ln"], attn_out + x, cfg.layer_norm_eps)
-    h = fused_ffn(p["ffn"]["up"], p["ffn"]["down"], x, cfg.hidden_act, compute_dtype)
+    h = fused_ffn(p["ffn"]["up"], p["ffn"]["down"], x, cfg.hidden_act, compute_dtype, tp_group("ffn"))
     return layer_norm(p["ffn"]["ln"], h + x, cfg.layer_norm_eps)
 
 

@@ -5,6 +5,11 @@ FeaturesProjector + scorers), the upstream of every exported checkpoint;
 parameter names match it (text_projector / classes_projector / linear_1 /
 linear_2). Besides the head itself: the layer fuser (``squeeze_layers``) and
 the BiLSTM (``use_lstm``) that refine the encoder states before it.
+
+Under tensor parallelism the projectors' linear_1/linear_2 and the scorers'
+mlp_1/mlp_2 run column- then row-parallel where ``parallel.sharding``
+sharded them (``parallel.collectives.tp_group``); the scorers' other
+products, the BiLSTM and the fuser are replicated.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import GLiClassConfig
-from ..ops.layers import activation, linear
+from ..ops.layers import activation, linear, row_linear
+from ..parallel.collectives import copy_to_model, tp_group
 from . import _init
 
 Params = dict[str, Any]
@@ -85,10 +91,11 @@ def pool_text(
     raise ValueError(f"unsupported pooling_strategy: {strategy!r}")
 
 
-def features_projector(p: Params, x: torch.Tensor, act_name: str, compute_dtype) -> torch.Tensor:
-    """FeaturesProjector: Linear(H -> 4H) -> act -> Linear(4H -> H)."""
-    h = activation(act_name)(linear(p["linear_1"], x, compute_dtype))
-    return linear(p["linear_2"], h, compute_dtype)
+def features_projector(p: Params, x: torch.Tensor, act_name: str, compute_dtype, group=None) -> torch.Tensor:
+    """FeaturesProjector: Linear(H -> 4H) -> act -> Linear(4H -> H);
+    ``group``: the model group its 4H is sharded over (None: whole)."""
+    h = activation(act_name)(linear(p["linear_1"], copy_to_model(x, group), compute_dtype))
+    return row_linear(p["linear_2"], h, compute_dtype, group)
 
 
 def score_simple(text_rep: torch.Tensor, label_rep: torch.Tensor) -> torch.Tensor:
@@ -101,8 +108,9 @@ def score_mlp(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
     """MLP scorer over [label; text; label*text] features -> fp32 [B, L]."""
     t = text_rep[:, None, :].expand_as(label_rep)
     feats = torch.cat([label_rep, t, label_rep * t], dim=-1)
-    h = F.relu(linear(p["mlp_1"], feats, compute_dtype))
-    return linear(p["mlp_2"], h, compute_dtype)[..., 0].float()
+    group = tp_group("scorer")
+    h = F.relu(linear(p["mlp_1"], copy_to_model(feats, group), compute_dtype))
+    return row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0].float()
 
 
 def score_weighted_dot(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
@@ -114,8 +122,9 @@ def score_weighted_dot(p: Params, text_rep: torch.Tensor, label_rep: torch.Tenso
     l2 = linear(p["proj_label"], label_rep, compute_dtype)  # [B, L, 2H]
     t2 = t2[:, None, :].expand_as(l2)
     feats = torch.cat([t2[..., :H], l2[..., :H], t2[..., H:] * l2[..., H:]], dim=-1)
-    h = F.relu(linear(p["mlp_1"], feats, compute_dtype))
-    return linear(p["mlp_2"], h, compute_dtype)[..., 0].float()
+    group = tp_group("scorer")
+    h = F.relu(linear(p["mlp_1"], copy_to_model(feats, group), compute_dtype))
+    return row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0].float()
 
 
 def fuse_layers(p: Params, states: torch.Tensor) -> torch.Tensor:
@@ -191,10 +200,11 @@ def gliclass_head(
         )
     text_rep = pool_text(hidden, attention_mask, cfg.pooling_strategy, span=span)
     text_rep = features_projector(
-        params["text_projector"], text_rep, cfg.projector_hidden_act, compute_dtype
+        params["text_projector"], text_rep, cfg.projector_hidden_act, compute_dtype, tp_group("text_projector")
     )
     label_emb = features_projector(
-        params["classes_projector"], label_emb, cfg.projector_hidden_act, compute_dtype
+        params["classes_projector"], label_emb, cfg.projector_hidden_act, compute_dtype,
+        tp_group("classes_projector"),
     )
     if cfg.normalize_features:
         text_rep = text_rep / torch.clamp(

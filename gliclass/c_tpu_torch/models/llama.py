@@ -17,6 +17,13 @@ repeating k/v, fp32 scores and softmax statistics, no [B, h, S, S] tensor.
 :func:`score_attention` keeps the JAX package's materialized-score
 formulation: the reference the tests hold the kernel route against, and the
 path of the "xla"/"table" routes (the trainer's).
+
+Under tensor parallelism (``parallel.collectives.model_parallel``) each rank
+holds its own query heads and the kv heads they read (``parallel.sharding``),
+and its own columns of the MLP's intermediate; head counts come from the
+local projections' widths, and each attention and MLP block ends with the
+sum over the model group (``ops.layers.row_linear``). Norms and embeddings
+are replicated.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 
 from ..config import BackboneConfig, check_attn_route
 from ..ops.causal_attention import causal_flash_attention
-from ..ops.layers import linear, masked_softmax, rms_norm
+from ..ops.layers import linear, masked_softmax, rms_norm, row_linear
+from ..parallel.collectives import copy_to_model, tp_group
 from . import _init
 from .deberta import _layer, _split_heads
 
@@ -68,11 +76,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _qkv_rope(p: Params, x: torch.Tensor, cos, sin, cfg: BackboneConfig, compute_dtype):
     """Projections, head split and rotary embedding: (qg [B, nkv, g, S, d],
-    k [B, nkv, S, d], v [B, nkv, S, d]) in the compute dtype."""
-    nh, nkv, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
-    q = _split_heads(linear(p["q"], x, compute_dtype), nh)
-    k = _split_heads(linear(p["k"], x, compute_dtype), nkv)
-    v = _split_heads(linear(p["v"], x, compute_dtype), nkv)
+    k [B, nkv, S, d], v [B, nkv, S, d]) in the compute dtype; nh and nkv
+    the heads of the projections' widths (this rank's under tensor
+    parallelism)."""
+    d = cfg.head_dim
+    q, k, v = (linear(p[n], x, compute_dtype) for n in ("q", "k", "v"))
+    nh, nkv = q.shape[-1] // d, k.shape[-1] // d
+    q, k, v = _split_heads(q, nh), _split_heads(k, nkv), _split_heads(v, nkv)
     q = apply_rope(q, cos, sin).to(compute_dtype)
     k = apply_rope(k, cos, sin).to(compute_dtype)
     B, _, S, _ = q.shape
@@ -89,9 +99,10 @@ def llama_attention(p: Params, x: torch.Tensor, key_mask: torch.Tensor, cos, sin
                     cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
     """One causal GQA self-attention block through the K5 kernel route.
     key_mask: [B, S] int32."""
-    qg, k, v = _qkv_rope(p, x, cos, sin, cfg, compute_dtype)
+    group = tp_group("attn")
+    qg, k, v = _qkv_rope(p, copy_to_model(x, group), cos, sin, cfg, compute_dtype)
     ctx = causal_flash_attention(qg, k, v, key_mask, 1.0 / math.sqrt(cfg.head_dim))
-    return linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype)
+    return row_linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype, group)
 
 
 def score_attention(p: Params, x: torch.Tensor, mask_bias: torch.Tensor, cos, sin,
@@ -99,14 +110,15 @@ def score_attention(p: Params, x: torch.Tensor, mask_bias: torch.Tensor, cos, si
     """The JAX package's materialized-score formulation (its XLA route):
     scores in the compute dtype (fp32 in fp32) divided by sqrt(d), the
     additive [B, S, S] causal + padding bias, softmax, P.v with fp32 sums."""
-    qg, k, v = _qkv_rope(p, x, cos, sin, cfg, compute_dtype)
+    group = tp_group("attn")
+    qg, k, v = _qkv_rope(p, copy_to_model(x, group), cos, sin, cfg, compute_dtype)
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
     scores = (torch.einsum("bkgid,bkjd->bkgij", qg.float(), k.float()).to(score_dtype)
               / math.sqrt(cfg.head_dim)).to(score_dtype)
     scores = scores + mask_bias[:, None, None].to(score_dtype)
     probs = masked_softmax(scores).to(compute_dtype)
     ctx = torch.einsum("bkgij,bkjd->bkgid", probs.float(), v.float())
-    return linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype)
+    return row_linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype, group)
 
 
 def causal_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -119,9 +131,11 @@ def causal_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def llama_mlp(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    group = tp_group("mlp")
+    x = copy_to_model(x, group)
     gate = F.silu(linear(p["gate"], x, compute_dtype))
     up = linear(p["up"], x, compute_dtype)
-    return linear(p["down"], gate * up, compute_dtype)
+    return row_linear(p["down"], gate * up, compute_dtype, group)
 
 
 def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,

@@ -62,6 +62,8 @@ _SIGNATURES = {
     ],
     "gct_flash_disentangled_attention_tc": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gct_fused_ffn_w8a8_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_fused_ffn_w8a8_tc_up": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gct_fused_ffn_w8a8_tc_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

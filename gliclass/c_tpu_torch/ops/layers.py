@@ -10,6 +10,10 @@ out of the K reduction and is applied once per output column. With the
 :func:`act_quant` context active (``quant_mode="int8-dynamic"``), INT8 dense
 layers also quantize their activations per row (w8a8); fp32 keeps weight-only
 INT8 regardless.
+
+Under tensor parallelism a row-parallel dense layer (input dim sharded over
+the model group) runs through :func:`row_linear`: the local partial product,
+the sum over the group, then the bias once.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce_max, all_reduce_sum, group_size, reduce_from_model
 
 Params = dict[str, Any]
 
@@ -83,8 +89,7 @@ def _linear_int8(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None =
 def row_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric absmax INT8: s = max|x|/127 clamped at 1e-10,
     q = round_half_even(x / s). ``x`` fp32."""
-    s = torch.clamp(x.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
-    return torch.round(x / s).to(torch.int8), s
+    return row_quant_amax(x, x.abs().amax(dim=-1, keepdim=True))
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -122,18 +127,63 @@ def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
-def _linear_w8a8(p: Params, x: torch.Tensor) -> torch.Tensor:
+def row_quant_amax(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`row_quant` of ``x`` with its rows' absmax given ([M, 1]; the
+    whole row's, when ``x`` holds a shard of each row)."""
+    s = torch.clamp(amax / 127.0, min=1e-10)
+    return torch.round(x / s).to(torch.int8), s
+
+
+def _linear_w8a8(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     """Dynamic-quantized INT8 matmul: y = (q(x) @ w_q) * s_x * scale (f32).
 
     Per-row symmetric activation quantization, int32 accumulation, both
     scales applied once after it. ONNX's DynamicQuantizeLinear is asymmetric
     uint8; this path is symmetric int8 (the JAX package's documented
-    divergence, kept here)."""
+    divergence, kept here).
+
+    ``group``: x holds this rank's shard of each row (a row-parallel layer).
+    The row absmax is then the maximum over the group, so the int8 operand
+    is the one process's bit for bit, and the exact int32 partial sums are
+    summed over the group before the scales: y equals one process's."""
     *lead, K = x.shape
-    x_q, s_x = row_quant(x.reshape(-1, K).float())
-    acc = int_mm(x_q, p["w_q"])
+    xf = x.reshape(-1, K).float()
+    if group_size(group) > 1:
+        x_q, s_x = row_quant_amax(xf, all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group))
+        acc = all_reduce_sum(int_mm(x_q, p["w_q"]), group)
+    else:
+        x_q, s_x = row_quant(xf)
+        acc = int_mm(x_q, p["w_q"])
     y = acc.float() * s_x * p["scale"].float()
     return y.reshape(*lead, y.shape[-1])
+
+
+def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
+    """A row-parallel dense layer: ``x`` [..., K/tp] and the weight's
+    [K/tp, N] rows are this rank's shards over the model ``group``; the
+    result is the whole [..., N] on every rank, in :func:`linear`'s dtype.
+    Without a group it is :func:`linear`.
+
+    w8a8 (:func:`act_quant`, reduced precision): the group's row absmax and
+    int32 sums (:func:`_linear_w8a8`), then the bias as :func:`linear`
+    adds it: one process's bits. Otherwise the partial product without the
+    bias, its sum over the group in fp32 (``reduce_from_model``, whose
+    backward is the identity), the bias added once in fp32, one rounding to
+    the output dtype."""
+    if group_size(group) == 1:
+        return linear(p, x, compute_dtype)
+    b = p.get("b")
+    dtype = compute_dtype or x.dtype
+    if "w_q" in p and act_quant_enabled() and dtype != torch.float32:
+        y = _linear_w8a8(p, x, group)
+        if b is not None:
+            y = y + b.to(dtype)
+        return y.to(dtype)
+    part = linear({k: v for k, v in p.items() if k != "b"}, x, compute_dtype)
+    y = reduce_from_model(part, group)
+    if b is not None:
+        y = y + b.float()
+    return y.to(part.dtype)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

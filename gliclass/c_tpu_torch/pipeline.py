@@ -74,10 +74,13 @@ class ZeroShotClassificationPipeline:
         runtime: RuntimeConfig | None = None,
         device=None,
         prompt_first: bool | None = None,
+        mesh=None,
     ) -> "ZeroShotClassificationPipeline":
+        """``mesh``: this rank's ``parallel.mesh.Mesh`` (default from
+        ``runtime.dp_size``/``tp_size``, see ``InferenceEngine``)."""
         from .convert import bundle as B
 
-        engine = InferenceEngine.from_bundle(bundle_path, runtime, device)
+        engine = InferenceEngine.from_bundle(bundle_path, runtime, device, mesh)
         tokenizer = PromptTokenizer.from_file(B.tokenizer_path(bundle_path))
         return cls(engine, tokenizer, runtime, prompt_first)
 

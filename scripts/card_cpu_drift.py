@@ -41,8 +41,9 @@ from gliclass.c_tpu_torch.tokenization import PromptTokenizer  # noqa: E402
 
 # Kernel wrappers as the backbones call them -> their plain versions.
 PLAIN = [(D, "flash_disentangled_attention", FA.flash_disentangled_attention_plain),
-         (FF, "fused_ffn_w8a8", FF.fused_ffn_w8a8_plain),
-         (FF, "fused_ffn_wonly", FF.fused_ffn_wonly_plain),
+         # The FFN wrappers' keywords (the [N, K] weights, the model group) do not change the plain arithmetic.
+         (FF, "fused_ffn_w8a8", lambda *a, wt_up=None, wt_dn=None, group=None: FF.fused_ffn_w8a8_plain(*a)),
+         (FF, "fused_ffn_wonly", lambda *a, group=None: FF.fused_ffn_wonly_plain(*a)),
          (IM, "int8_matmul", IM.int8_matmul_plain),
          (L, "causal_flash_attention", CA.causal_flash_attention_plain)]
 

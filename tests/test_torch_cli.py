@@ -160,11 +160,38 @@ def test_unported_commands_fail_clearly(tiny_tokenizer_file, tiny_bundle, job_fi
 
     assert main(["fetch", "some/model"], device="cpu") == 2
     assert "downloads a checkpoint from the hub" in capsys.readouterr().err
-    for bad in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 6"):
+    # --dp/--tp without a launch name the launcher's variables; --sp and a
+    # multi-rank serve are not ported (ROADMAP.md queue 1, items 8 and 7).
+    for bad in (["--dp", "2"], ["--tp", "2"]):
+        with pytest.raises(SystemExit, match="needs 2 ranks: launch 2 processes with .*MASTER_ADDR/MASTER_PORT"):
             main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, *bad], device="cpu")
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 8"):
+        main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, "--sp", "2"], device="cpu")
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 7"):
+        main(["serve", "--bundle", tiny_bundle, *FLAGS, "--tp", "2"], device="cpu")
     with pytest.raises(SystemExit, match="downloads a checkpoint from the hub"):
         main(["run", job_file, "--model", "some/model", *FLAGS], device="cpu")
+
+
+def test_run_tp2_two_ranks_same_report(tiny_bundle, job_file, tmp_path, capsys):
+    """`run --tp 2` in two CPU processes launched with torchrun's variables
+    prints, on rank 0 alone, the report of `run --tp 1`."""
+    assert main(["run", job_file, "--bundle", tiny_bundle, *FLAGS], device="cpu") == 0
+    want = _report(capsys.readouterr().out)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import sys; from gliclass.c_tpu_torch.cli import main; "
+            f"sys.exit(main(['run', {job_file!r}, '--bundle', {tiny_bundle!r}, *{FLAGS!r}, '--tp', '2'], "
+            "device='cpu'))")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
+                                                  MASTER_PORT=str(port), RANK=str(r), WORLD_SIZE="2"))
+             for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    assert _report(outs[0][0]) == want
+    assert outs[1][0] == ""
 
 
 def test_serve_wiring(tiny_bundle, monkeypatch):

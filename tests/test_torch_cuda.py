@@ -1494,3 +1494,88 @@ def test_per_kernel_report_on_card(dev, quant_mode, kernels):
     assert rows[2]["route"] == "flash"
     for k in kernels:
         assert counts[k] > 0, counts
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: K2' split at s_h, K1' and K5' at a rank's local heads
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,H,I", [(70, 128, 256), (512, 768, 1536), (8192, 768, 1536)])
+def test_ffn_tc_split_halves_equal_fused_at_tp1(dev, M, H, I):
+    """One rank's two halves (gct_fused_ffn_w8a8_tc_up, then _down on its
+    absmax) give the fused entry's bits, in bf16 and, rounded, in fp32; and
+    the fused entry's h_q."""
+    args = _ffn_args(dev, M, H, I, M + H)
+    x, wu, su, bu, wd, sd, bd, _ = args
+    nk = _nk(args)
+    out = torch.empty_like(x)
+    entry_args, (i8, _f32) = FF.w8a8_tc_args(x, nk["wt_up"], su, bu, nk["wt_dn"], sd, bd, out)
+    from gliclass.c_tpu_torch.ops import _build
+
+    _build.check(_build.lib().gct_fused_ffn_w8a8_tc(*entry_args), "gct_fused_ffn_w8a8_tc")
+    h, sh, _ = FF.w8a8_tc_up(x, nk["wt_up"], su, bu)
+    got, hq = FF.w8a8_tc_down(h, sh, nk["wt_dn"], sd, bd, torch.bfloat16)
+    h, sh, _ = FF.w8a8_tc_up(x, nk["wt_up"], su, bu)
+    got32, _ = FF.w8a8_tc_down(h, sh, nk["wt_dn"], sd, bd, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out) and torch.equal(got32.to(torch.bfloat16), out)
+    assert torch.equal(hq.reshape(-1), i8[M * H:])
+
+
+def test_ffn_tc_split_with_a_shared_s_h_matches_the_plain_split(dev):
+    """Two ranks' halves on their columns of I = 3072 (1536 each), the row
+    absmax their maximum (as the all-reduce gives it): h_q, concatenated,
+    is the one-rank K2's; the fp32 partial sums plus the bias agree with the
+    plain split within K2's bf16 tolerance."""
+    M, H, I = 1024, 768, 3072
+    args = _ffn_args(dev, M, H, I, 12)
+    x, wu, su, bu, wd, sd, bd, _ = args
+    nk = _nk(args)
+    h1, sh1, _ = FF.w8a8_tc_up(x, nk["wt_up"], su, bu)
+    _, hq1 = FF.w8a8_tc_down(h1, sh1, nk["wt_dn"], sd, bd, torch.bfloat16)
+    cols = [slice(0, I // 2), slice(I // 2, I)]
+    ups = [FF.w8a8_tc_up(x, FF.nk_weight(wu[:, c]), su[c].contiguous(), bu[c].contiguous()) for c in cols]
+    sh = torch.maximum(ups[0][1], ups[1][1])
+    downs = [FF.w8a8_tc_down(h, sh.clone(), FF.nk_weight(wd[c]), sd) for (h, _, _), c in zip(ups, cols)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([hq for _, hq in downs], dim=-1), hq1)
+    y = (downs[0][0] + downs[1][0] + bd).to(torch.bfloat16).float()
+    hs = [FF.ffn_w8a8_up_plain(x, wu[:, c], su[c], bu[c]) for c in cols]
+    amax = torch.maximum(hs[0][1], hs[1][1])
+    want = (sum(FF.ffn_w8a8_down_plain(h, amax, wd[c], sd) for (h, _), c in zip(hs, cols)) + bd)
+    want = want.to(torch.bfloat16).float()
+    assert (y - want).abs().max().item() <= 4 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+
+
+def test_ffn_split_refuses_the_cuda_core_widths(dev, monkeypatch):
+    """Under a model group of two the CUDA-core K2 (H or I not a multiple of
+    16) cannot split at s_h: the wrapper raises and launches nothing."""
+    args = _ffn_args(dev, 40, 100, 196, 3)
+    monkeypatch.setattr(FF, "group_size", lambda group: 2)
+    FF.launches = FF.launches_split = 0
+    with pytest.raises(ValueError, match="only\\s+its tensor-core variant"):
+        FF.fused_ffn_w8a8(*args, group=object())
+    assert (FF.launches, FF.launches_split) == (0, 0)
+
+
+@pytest.mark.parametrize("S", [56, 128, 512])
+def test_flash_tc_kernel_at_a_ranks_six_heads(dev, S):
+    """K1' at gliclass-base's local heads under tp = 2 (6 of 12)."""
+    args = _attn_inputs(dev, 4, 6, S, torch.bfloat16, S + 6)
+    FA.launches = FA.launches_flash_tc = 0
+    got = FA.flash_disentangled_attention(*args, math.sqrt(3 * 64))
+    assert (FA.launches, FA.launches_flash_tc) == (1, 1)
+    want = FA.flash_disentangled_attention_plain(*args, math.sqrt(3 * 64))
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("S", [56, 300])
+def test_causal_tc_kernel_at_a_ranks_heads(dev, S):
+    """K5' at qwen-1.5B's local heads under tp = 2: 6 query heads on 1 kv head, d = 128."""
+    qg, k, v, mask = _causal_inputs(dev, 3, 1, 6, S, 128, torch.bfloat16, S)
+    CA.launches_tc = 0
+    got = CA.causal_flash_attention(qg, k, v, mask, 1.0 / math.sqrt(128))
+    assert CA.launches_tc == 1
+    want = CA.causal_flash_attention_plain(qg, k, v, mask, 1.0 / math.sqrt(128))
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2

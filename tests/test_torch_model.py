@@ -234,5 +234,9 @@ def test_engine_without_device_needs_cuda(np_params):
 
 def test_engine_refuses_multi_device_runtime(np_params):
     _, tc = tiny_cfgs()
-    with pytest.raises(ValueError, match="one card"):
+    # Without a process group a multi-rank mesh is refused, naming the
+    # launcher's variables; sequence parallelism is not ported.
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1; launch 2 processes with .*MASTER_ADDR"):
         InferenceEngine(tc, np_params[0], tcfg.RuntimeConfig(tp_size=2), device="cpu")
+    with pytest.raises(ValueError, match="queue 1, item 8"):
+        InferenceEngine(tc, np_params[0], tcfg.RuntimeConfig(sp_size=2), device="cpu")

@@ -27,14 +27,15 @@ the host (it builds the torch reference model through ``transformers`` for
 the goldens). ``fetch`` and ``--model`` download from the hub and stay with
 the JAX package's CLI. Each fails with a message saying so.
 
-``run`` and ``selftest`` take ``--dp/--tp`` over ranks launched with the
-JAX package's variables or torchrun's (``parallel.distributed.
-initialize_from_env``, called at entry): every rank runs the command in
-step, and global rank 0 prints. ``--dp/--tp`` other than 1 without such a
-launch are refused; so are ``serve`` over a multi-rank mesh (ROADMAP.md
-queue 1, item 7) and ``--sp`` other than 1 (item 8). Commands run on the
-CUDA card; ``main(argv, device="cpu")`` runs them on the CPU (the tests
-do).
+``run``, ``selftest`` and ``serve`` take ``--dp/--sp/--tp`` over ranks
+launched with the JAX package's variables or torchrun's (``parallel.
+distributed.initialize_from_env``, called at entry). Under ``run`` and
+``selftest`` every rank runs the command in step, and global rank 0 prints.
+Under ``serve`` global rank 0 leads: it serves HTTP and broadcasts each
+forward's inputs, the other ranks follow, and every rank exits 0 when the
+leader stops (SIGTERM). Sizes other than 1 without such a launch are
+refused. Commands run on the CUDA card; ``main(argv, device="cpu")`` runs
+them on the CPU (the tests do).
 """
 
 from __future__ import annotations
@@ -59,16 +60,12 @@ def _runtime_from_args(args) -> RuntimeConfig:
 
     from .parallel.distributed import LAUNCHER_VARS
 
-    if args.sp != 1:
-        raise SystemExit(
-            f"error: --sp {args.sp}: sequence parallelism is not ported (ROADMAP.md queue 1, item 8)"
-        )
-    n = args.dp * args.tp
+    n = args.dp * args.sp * args.tp
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n != world:
         how = (f"launch {n} processes with {LAUNCHER_VARS} set" if world == 1
                else f"the launch has {world} ranks")
-        raise SystemExit(f"error: --dp {args.dp} --tp {args.tp} needs {n} ranks: {how}")
+        raise SystemExit(f"error: --dp {args.dp} --sp {args.sp} --tp {args.tp} needs {n} ranks: {how}")
     return RuntimeConfig(
         batch_size=args.batch_size,
         max_length=args.max_length,
@@ -78,6 +75,7 @@ def _runtime_from_args(args) -> RuntimeConfig:
         tokenizer_workers=args.workers,
         attn_route=os.environ.get("GLICLASS_TPU_ATTN_ROUTE", "auto"),
         dp_size=args.dp,
+        sp_size=args.sp,
         tp_size=args.tp,
     )
 
@@ -106,9 +104,9 @@ def _add_runtime_flags(p: argparse.ArgumentParser):
     p.add_argument("--int8-dynamic", action="store_true",
                    help="w8a8: INT8 weight bundle + dynamic per-token INT8 activations "
                    "(the reference's ONNX dynamic-quantization mode)")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (dp x tp launched ranks)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (dp x tp launched ranks)")
-    p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (1 only)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (dp x sp x tp launched ranks)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (dp x sp x tp launched ranks)")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (dp x sp x tp launched ranks)")
     p.add_argument("--workers", type=int, default=8, help="tokenizer threads")
 
 
@@ -168,21 +166,31 @@ def cmd_fetch(args, device=None) -> int:
 
 
 def cmd_serve(args, device=None) -> int:
-    """Serve the model over HTTP with continuous batching."""
+    """Serve the model over HTTP with continuous batching. Over a multi-rank
+    mesh global rank 0 leads (the scheduler, the HTTP server, and a
+    broadcast of each forward's inputs) and every other rank follows
+    (``InferenceEngine.follow``) until the leader stops them: on SIGTERM,
+    or when its server closes."""
     from .convert import bundle as B
     from .engine import InferenceEngine
-    from .serving import GLiClassServer
-    from .tokenization import PromptTokenizer
 
-    if args.dp * args.tp != 1:
-        raise SystemExit(
-            f"error: serve --dp {args.dp} --tp {args.tp}: serving over a multi-rank mesh is not ported "
-            "(ROADMAP.md queue 1, item 7); run one server per card"
-        )
     runtime = _runtime_from_args(args)
     bundle_path = _resolve_bundle(args)
     engine = InferenceEngine.from_bundle(bundle_path, runtime, device)
-    tokenizer = PromptTokenizer.from_file(B.tokenizer_path(bundle_path))
+    if _rank() != 0:
+        return engine.follow()
+    engine.lead()
+    try:
+        return _lead_serve(args, engine, runtime, B.tokenizer_path(bundle_path))
+    finally:
+        engine.stop_followers()
+
+
+def _lead_serve(args, engine, runtime, tokenizer_path) -> int:
+    from .serving import GLiClassServer
+    from .tokenization import PromptTokenizer
+
+    tokenizer = PromptTokenizer.from_file(tokenizer_path)
     if args.warmup:
         # Every (seq, row, label) bucket once before binding the port, on the
         # route each bucket takes, so early traffic pays no first-use costs.
@@ -316,7 +324,7 @@ def main(argv=None, device=None) -> int:
     p_self.set_defaults(fn=cmd_selftest)
 
     args = parser.parse_args(argv)
-    if args.fn not in (cmd_run, cmd_selftest):
+    if args.fn not in (cmd_run, cmd_selftest, cmd_serve):
         return args.fn(args, device=device)
     import torch.distributed as dist
 

@@ -65,9 +65,9 @@ class RuntimeConfig:
     # execution mode, DynamicQuantizeLinear+MatMulInteger)
     quant_mode: str = "none"
     # Mesh axes sizes (data, tensor, sequence parallel), as in the JAX
-    # package: the engine runs over dp_size x tp_size ranks of an initialised
-    # torch.distributed world (parallel/mesh.py); sp_size other than 1 is
-    # refused (ROADMAP.md queue 1, item 8).
+    # package: the engine runs over dp_size x sp_size x tp_size ranks of an
+    # initialised torch.distributed world (parallel/mesh.py); a seq bucket
+    # that sp_size does not divide runs seq-replicated.
     dp_size: int = 1
     tp_size: int = 1
     sp_size: int = 1

@@ -30,6 +30,13 @@
 // d <= 128 runs). The ragged edge (any S on the bucket ladder) is masked in
 // the block. This first version runs the products as fp32 FMAs on CUDA cores;
 // tensor cores (mma.sync / wgmma) are the next step.
+//
+// A query-row offset (sequence parallelism): q may hold only Sq rows, the
+// absolute rows q_off .. q_off + Sq - 1 of the S keys. The causal cut is then
+// j <= i + q_off, in the tile skip (key tiles up to the one holding the
+// tile's last absolute row) and in the mask. A key tile wholly above a row
+// adds exactly nothing to it (alpha = 1, p = 0), so every row equals the full
+// launch's bit for bit.
 
 #include "common.cuh"
 
@@ -65,7 +72,7 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
                  const T* __restrict__ k, int ksb, int ksh, int kss,
                  const T* __restrict__ v, int vsb, int vsh, int vss,
                  const int* __restrict__ mask, T* __restrict__ out, int nkv, int g,
-                 int S, int d, float scale) {
+                 int Sq, int S, int q_off, int d, float scale) {
   extern __shared__ __align__(16) float sm[];
   float* Qt = sm;               // [DP][LDT]  q tile, k-major: Qt[c][row]
   float* Kt = Qt + DP * LDT;    // [DP][LDT]  k tile, k-major: Kt[c][key]
@@ -86,7 +93,7 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
 
   for (int e = tid; e < BQ * DP; e += THREADS) {
     const int r = e / DP, c = e % DP, i = i0 + r;
-    Qt[c * LDT + r] = (i < S && c < d) ? to_float(qb[(size_t)i * qss + c]) : 0.f;
+    Qt[c * LDT + r] = (i < Sq && c < d) ? to_float(qb[(size_t)i * qss + c]) : 0.f;
   }
 
   float o[4][4 * NG], m[4], l[4];
@@ -98,9 +105,11 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
     for (int c = 0; c < 4 * NG; ++c) o[a][c] = 0.f;
   }
 
-  // Key tiles 0..qt: BQ == BK, so tile qt holds the diagonal and every
-  // later tile lies wholly above it.
-  for (int t = 0; t <= qt; ++t) {
+  // Key tiles up to the one holding the tile's last absolute row (at q_off =
+  // 0, tile qt: BQ == BK, so it holds the diagonal and every later tile lies
+  // wholly above it).
+  const int t_last = min((i0 + q_off + BQ - 1) / BK, (S - 1) / BK);
+  for (int t = 0; t <= t_last; ++t) {
     const int j0 = t * BK;
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * DP; e += THREADS) {
@@ -131,7 +140,7 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
 
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int i = i0 + tr * 4 + a;
+      const int i = i0 + tr * 4 + a + q_off;  // the absolute row
       bool ok[4];
       float mx = -1e30f;
 #pragma unroll
@@ -177,9 +186,9 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + tr * 4 + a;
-    if (i >= S) continue;
+    if (i >= Sq) continue;
     const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
-    T* orow = out + (((size_t)b * S + i) * nh + h) * d;
+    T* orow = out + (((size_t)b * Sq + i) * nh + h) * d;
 #pragma unroll
     for (int gcol = 0; gcol < NG; ++gcol)
 #pragma unroll
@@ -190,44 +199,49 @@ causal_fa_kernel(const T* __restrict__ q, int qsb, int qsk, int qsg, int qss,
   }
 }
 
+struct Dims {
+  int B, nkv, g, Sq, S, q_off, d;
+};
+
 template <typename T, int DP>
 int launch(const void* q, const int* qs, const void* k, const int* ks, const void* v,
-           const int* vs, const void* mask, void* out, int B, int nkv, int g, int S, int d,
-           float scale, cudaStream_t stream) {
+           const int* vs, const void* mask, void* out, Dims n, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DP>() * 4;
   static cudaError_t attr = allow_smem(causal_fa_kernel<T, DP>, bytes);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BQ - 1) / BQ, nkv * g, B);
+  dim3 grid((n.Sq + BQ - 1) / BQ, n.nkv * n.g, n.B);
   causal_fa_kernel<T, DP><<<grid, THREADS, bytes, stream>>>(
       (const T*)q, qs[0], qs[1], qs[2], qs[3], (const T*)k, ks[0], ks[1], ks[2], (const T*)v,
-      vs[0], vs[1], vs[2], (const int*)mask, (T*)out, nkv, g, S, d, scale);
+      vs[0], vs[1], vs[2], (const int*)mask, (T*)out, n.nkv, n.g, n.Sq, n.S, n.q_off, n.d, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const int* qs, const void* k, const int* ks, const void* v,
-             const int* vs, const void* mask, void* out, int B, int nkv, int g, int S, int d,
-             float scale, cudaStream_t st) {
-  if (d <= 64) return launch<T, 64>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
-  return launch<T, 128>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
+             const int* vs, const void* mask, void* out, Dims n, float scale, cudaStream_t st) {
+  if (n.d <= 64) return launch<T, 64>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
+  return launch<T, 128>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q: [B, nkv, g, S, d] with element strides
-// (qsb, qsk, qsg, qss); k, v: [B, nkv, S, d] with strides (sb, sh, ss); all
-// with a unit last stride; mask: [B, S] int32; out: [B, S, nkv*g, d]
-// contiguous. 1 <= d <= 128.
+// dtype: 0 = float32, 1 = bfloat16. q: [B, nkv, g, Sq, d] with element strides
+// (qsb, qsk, qsg, qss), the query rows q_off .. q_off + Sq - 1; k, v: [B, nkv,
+// S, d] with strides (sb, sh, ss); all with a unit last stride; mask: [B, S]
+// int32; out: [B, Sq, nkv*g, d] contiguous. 1 <= d <= 128, 1 <= Sq, 0 <=
+// q_off, q_off + Sq <= S.
 extern "C" int gct_causal_flash_attention(int dtype, const void* q, int qsb, int qsk, int qsg,
                                           int qss, const void* k, int ksb, int ksh, int kss,
                                           const void* v, int vsb, int vsh, int vss,
                                           const void* mask, void* out, int B, int nkv, int g,
-                                          int S, int d, float scale, void* stream) {
-  if (d < 1 || d > 128 || S < 1 || B < 1 || nkv < 1 || g < 1) return (int)cudaErrorInvalidValue;
+                                          int Sq, int S, int q_off, int d, float scale,
+                                          void* stream) {
+  if (d < 1 || d > 128 || Sq < 1 || q_off < 0 || q_off + Sq > S || B < 1 || nkv < 1 || g < 1)
+    return (int)cudaErrorInvalidValue;
   const int qs[4] = {qsb, qsk, qsg, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
+  const Dims n{B, nkv, g, Sq, S, q_off, d};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
+  if (dtype == 0) return dispatch<float>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -46,6 +46,13 @@
 // they read its k and v through L2. d below the tile width (64 or 128) is
 // zero-padded. The context is staged as bf16 in the warp's own rows of the
 // last k tile and stored 16 bytes a copy into [B, S, nh, d].
+//
+// A query-row offset (sequence parallelism), as the CUDA-core K5: q may hold
+// only Sq rows, the absolute rows q_off .. q_off + Sq - 1 of the S keys; the
+// cut is j <= i + q_off, the tiles run up to the one holding the tile's last
+// absolute row, and a warp takes the 8-key columns up to its last absolute
+// row. A key tile or column wholly above a row adds exactly nothing to it,
+// so every row equals the full launch's bit for bit.
 
 #include <math.h>
 
@@ -73,8 +80,8 @@ __global__ void __launch_bounds__(THREADS, 3)
 causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int qss,
                     const bf16* __restrict__ k, int ksb, int ksh, int kss,
                     const bf16* __restrict__ v, int vsb, int vsh, int vss,
-                    const int* __restrict__ mask, bf16* __restrict__ out, int nkv, int g, int S, int d,
-                    float scale_log2) {
+                    const int* __restrict__ mask, bf16* __restrict__ out, int nkv, int g, int Sq, int S,
+                    int q_off, int d, float scale_log2) {
   using L = Layout<DP>;
   constexpr int LD = L::LD, KS = DP / 16, NT = DP / 8, CH = DP / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -86,6 +93,8 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
   const int h = blockIdx.x % nh, b = blockIdx.x / nh;
   const int qt = gridDim.y - 1 - blockIdx.y;  // the longest query tiles first
   const int i0 = qt * BQ;
+  const int a0 = i0 + q_off;  // the tile's first absolute row
+  const int t_last = min((a0 + BQ - 1) / BK, (S - 1) / BK);  // at q_off = 0: qt
   const int kv = h / g, gi = h - kv * g;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int rw = warp * 16;  // the warp's first row in the tile
@@ -94,19 +103,19 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
   const bf16* vb = v + (size_t)b * vsb + (size_t)kv * vsh;
   const int* mb = mask + (size_t)b * S;
 
-  // Rows r0..r0+63 of a [S, d] matrix (row stride ld) into a tile, zeros
-  // past S and d (d % 16 == 0: a 16-byte piece is wholly inside or outside).
-  const auto stage = [&](const bf16* src, int ld, int r0, bf16* dst) {
+  // Rows r0..r0+63 of an [n, d] matrix (row stride ld) into a tile, zeros
+  // past n and d (d % 16 == 0: a 16-byte piece is wholly inside or outside).
+  const auto stage = [&](const bf16* src, int ld, int r0, int n, bf16* dst) {
     for (int e = tid; e < 64 * CH; e += THREADS) {
       const int r = e / CH, c = (e % CH) * 8, row = r0 + r;
-      const bool ok = row < S && c < d;
+      const bool ok = row < n && c < d;
       cp_async16(dst + r * LD + c, ok ? src + (size_t)row * ld + c : src, ok);
     }
   };
 
-  stage(qb, qss, i0, Qs);
-  stage(kb, kss, 0, Ks);
-  stage(vb, vss, 0, Vs);
+  stage(qb, qss, i0, Sq, Qs);
+  stage(kb, kss, 0, S, Ks);
+  stage(vb, vss, 0, S, Vs);
   cp_async_commit();
 
   uint32_t qf[KS][4];
@@ -119,9 +128,9 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
   // log2 units) and this lane's part of the running sum.
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  // Key tiles 0..qt: BQ == BK, so tile qt holds the diagonal and every later
-  // tile lies wholly above it.
-  for (int t = 0; t <= qt; ++t) {
+  // Key tiles 0..t_last: at q_off = 0, BQ == BK, so tile qt holds the
+  // diagonal and every later tile lies wholly above it.
+  for (int t = 0; t <= t_last; ++t) {
     cp_async_wait<0>();
     __syncthreads();  // tile t has landed; every read of tile t - 1's buffers is done
     if (t == 0) {
@@ -129,18 +138,20 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
       for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], Qs + (rw + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
       __syncthreads();  // every warp holds its q fragments: tile 1 may overwrite the q tile
     }
-    if (t < qt) {
-      stage(kb, kss, (t + 1) * BK, Ks + ((t + 1) & 1) * L::TILE);
-      stage(vb, vss, (t + 1) * BK, Vs + ((t + 1) & 1) * L::TILE);
+    if (t < t_last) {
+      stage(kb, kss, (t + 1) * BK, S, Ks + ((t + 1) & 1) * L::TILE);
+      stage(vb, vss, (t + 1) * BK, S, Vs + ((t + 1) & 1) * L::TILE);
     }
     cp_async_commit();
     const bf16* Kt = Ks + (t & 1) * L::TILE;
     const bf16* Vt = Vs + (t & 1) * L::TILE;
     const int j0 = t * BK;
-    const bool diag = t == qt;
-    // Key columns in 8-key tiles that the warp needs: on the diagonal, those
-    // up to its last row (the rest are masked for all its rows).
-    const int nkt = diag ? 2 * (warp + 1) : 8;
+    // cut: the key columns of this tile up to a row's absolute position are
+    // jl <= il + cut; the 8-key column tiles that the warp needs are those up
+    // to its last row (the rest are masked for all its rows). At q_off = 0
+    // the diagonal tile has cut = 0 and 2 (warp + 1) column tiles.
+    const int cut = a0 - j0, last = rw + 15 + cut;
+    const int nkt = last < 0 ? 0 : min(8, last / 8 + 1);
 
     // The tile's valid keys (in range and unmasked), one bit each.
     const unsigned lo = __ballot_sync(0xffffffffu, j0 + lane < S && mb[j0 + lane] > 0);
@@ -169,7 +180,7 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int jl = n * 8 + 2 * tq + (e & 1), il = rw + gq + 8 * (e >> 1);
-        const bool ok = (((n < 4 ? lo : hi) >> (jl & 31)) & 1u) && (!diag || jl <= il);
+        const bool ok = (((n < 4 ? lo : hi) >> (jl & 31)) & 1u) && jl <= il + cut;
         s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
@@ -231,7 +242,7 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
     inv[hh] = l > 0.f ? 1.f / l : 0.f;
   }
   __syncthreads();  // every read of the last k and v tiles is done
-  bf16* Os = Ks + (qt & 1) * L::TILE + rw * LD;
+  bf16* Os = Ks + (t_last & 1) * L::TILE + rw * LD;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(Os + gq * LD + n * 8 + 2 * tq) =
@@ -242,37 +253,42 @@ causal_fa_tc_kernel(const bf16* __restrict__ q, int qsb, int qsk, int qsg, int q
   __syncwarp();
   for (int e = lane; e < 16 * CH; e += 32) {
     const int r = e / CH, c = (e % CH) * 8, i = i0 + rw + r;
-    if (i < S && c < d)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * S + i) * nh + h) * d + c) =
+    if (i < Sq && c < d)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + i) * nh + h) * d + c) =
           *reinterpret_cast<const uint4*>(Os + r * LD + c);
   }
 }
 
+struct Dims {
+  int B, nkv, g, Sq, S, q_off, d;
+};
+
 template <int DP>
 int launch(const void* q, const int* qs, const void* k, const int* ks, const void* v, const int* vs,
-           const void* mask, void* out, int B, int nkv, int g, int S, int d, float scale, cudaStream_t stream) {
+           const void* mask, void* out, Dims n, float scale, cudaStream_t stream) {
   static cudaError_t attr = allow_smem(causal_fa_tc_kernel<DP>, Layout<DP>::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(B * nkv * g, (S + BQ - 1) / BQ);
+  dim3 grid(n.B * n.nkv * n.g, (n.Sq + BQ - 1) / BQ);
   causal_fa_tc_kernel<DP><<<grid, THREADS, Layout<DP>::SMEM, stream>>>(
       (const bf16*)q, qs[0], qs[1], qs[2], qs[3], (const bf16*)k, ks[0], ks[1], ks[2], (const bf16*)v, vs[0],
-      vs[1], vs[2], (const int*)mask, (bf16*)out, nkv, g, S, d, scale * LOG2E);
+      vs[1], vs[2], (const int*)mask, (bf16*)out, n.nkv, n.g, n.Sq, n.S, n.q_off, n.d, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only. q: [B, nkv, g, S, d] with element strides (qsb, qsk, qsg, qss);
-// k, v: [B, nkv, S, d] with strides (sb, sh, ss); all with a unit last
-// stride, the other strides multiples of 8 and q, k, v 16-byte aligned;
-// mask: [B, S] int32; out: [B, S, nkv*g, d] contiguous, 16-byte aligned.
-// d a multiple of 16, at most 128.
+// bf16 only. q: [B, nkv, g, Sq, d] with element strides (qsb, qsk, qsg, qss),
+// the query rows q_off .. q_off + Sq - 1; k, v: [B, nkv, S, d] with strides
+// (sb, sh, ss); all with a unit last stride, the other strides multiples of 8
+// and q, k, v 16-byte aligned; mask: [B, S] int32; out: [B, Sq, nkv*g, d]
+// contiguous, 16-byte aligned. d a multiple of 16, at most 128; 1 <= Sq, 0 <=
+// q_off, q_off + Sq <= S.
 extern "C" int gct_causal_flash_attention_tc(const void* q, int qsb, int qsk, int qsg, int qss, const void* k,
                                              int ksb, int ksh, int kss, const void* v, int vsb, int vsh, int vss,
-                                             const void* mask, void* out, int B, int nkv, int g, int S, int d,
-                                             float scale, void* stream) {
-  if (d < 16 || d > 128 || d % 16 || S < 1 || B < 1 || nkv < 1 || g < 1 || (S + BQ - 1) / BQ > 65535 ||
-      (long long)B * nkv * g > 0x7fffffffLL)
+                                             const void* mask, void* out, int B, int nkv, int g, int Sq, int S,
+                                             int q_off, int d, float scale, void* stream) {
+  if (d < 16 || d > 128 || d % 16 || Sq < 1 || q_off < 0 || q_off + Sq > S || B < 1 || nkv < 1 || g < 1 ||
+      (Sq + BQ - 1) / BQ > 65535 || (long long)B * nkv * g > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int qs[4] = {qsb, qsk, qsg, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
   for (int s : qs)
@@ -281,7 +297,8 @@ extern "C" int gct_causal_flash_attention_tc(const void* q, int qsb, int qsk, in
     if (ks[i] % 8 || vs[i] % 8) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)q % 16 || (uintptr_t)k % 16 || (uintptr_t)v % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
+  const Dims n{B, nkv, g, Sq, S, q_off, d};
   cudaStream_t st = (cudaStream_t)stream;
-  if (d <= 64) return launch<64>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
-  return launch<128>(q, qs, k, ks, v, vs, mask, out, B, nkv, g, S, d, scale, st);
+  if (d <= 64) return launch<64>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
+  return launch<128>(q, qs, k, ks, v, vs, mask, out, n, scale, st);
 }

@@ -32,6 +32,15 @@
 // three terms are summed before the scale; P is rounded to v's type before
 // P.v; the accumulator is fp32. Query rows whose own mask is 0 are computed
 // like any other (key-only mask).
+//
+// A query-row offset (sequence parallelism): q may hold only Sq rows, the
+// absolute rows q_off .. q_off + Sq - 1 of the S keys, with strides of its
+// own. A tile's relative windows follow its absolute rows; every row reads
+// only its own scores, so its result is the full launch's bit for bit. The
+// launch over every row with k's strides (sequence parallelism off) takes an
+// instantiation where q's strides, Sq and q_off are k's, S and 0 at compile
+// time: with them at run time the kernel took 18% longer at q_off = 0 (same
+// 128 registers, no spills; scripts/k1_k2_times.py device time, H100).
 
 #include <math.h>
 
@@ -63,12 +72,15 @@ __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, bool ALL_ROWS>
 __global__ void __launch_bounds__(THREADS)
-flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                int sb, int sh, int ss, const T* __restrict__ posk,
+flash_da_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_ss, const T* __restrict__ k,
+                const T* __restrict__ v, int sb, int sh, int ss, const T* __restrict__ posk,
                 const T* __restrict__ posq, const int* __restrict__ mask,
-                T* __restrict__ out, int H, int S, float inv_scale) {
+                T* __restrict__ out, int H, int q_rows, int S, int q_first, float inv_scale) {
+  // ALL_ROWS: q is every row, with k's strides.
+  const int qsb = ALL_ROWS ? sb : q_sb, qsh = ALL_ROWS ? sh : q_sh, qss = ALL_ROWS ? ss : q_ss;
+  const int Sq = ALL_ROWS ? S : q_rows, q_off = ALL_ROWS ? 0 : q_first;
   extern __shared__ float sm[];
   float* Qs = sm;                 // [BQ][LD]
   float* Ks = Qs + BQ * LD;       // [BK][LD]
@@ -82,7 +94,7 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
   const size_t off = (size_t)b * sb + (size_t)h * sh;
-  const T* qb = q + off;
+  const T* qb = q + (size_t)b * qsb + (size_t)h * qsh;
   const T* kb = k + off;
   const T* vb = v + off;
   const int W = 2 * S - 1;
@@ -92,7 +104,7 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, c = e % D, i = i0 + r;
-    Qs[r * LD + c] = i < S ? to_float(qb[(size_t)i * ss + c]) : 0.f;
+    Qs[r * LD + c] = i < Sq ? to_float(qb[(size_t)i * qss + c]) : 0.f;
   }
 
   float o[4][4], m[4], l[4];
@@ -119,9 +131,10 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       Vt[c * LD + r] = vv;
     }
     // Window row w holds relative row base + w; for local (il, jl) the c2p
-    // row is w = jl - il + 63 and the p2c row is w = il - jl + 63.
-    const int base_c = j0 - i0 + S - BQ;
-    const int base_p = i0 - j0 + S - BK;
+    // row is w = jl - il + 63 and the p2c row is w = il - jl + 63. The tile's
+    // first absolute row is i0 + q_off.
+    const int base_c = j0 - (i0 + q_off) + S - BQ;
+    const int base_p = (i0 + q_off) - j0 + S - BK;
     for (int e = tid; e < WIN * D; e += THREADS) {
       const int w = e / D, c = e % D, mc = base_c + w, mp = base_p + w;
       const bool in_win = w < WIN - 1;
@@ -191,41 +204,49 @@ flash_da_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + tr * 4 + a;
-    if (i >= S) continue;
+    if (i >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      out[(((size_t)b * S + i) * H + h) * D + tc + 16 * c] = from_float<T>(o[a][c] / l[a]);
+      out[(((size_t)b * Sq + i) * H + h) * D + tc + 16 * c] = from_float<T>(o[a][c] / l[a]);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, int sb, int sh, int ss,
-           const void* posk, const void* posq, const void* mask, void* out, int B,
-           int H, int S, float inv_scale, cudaStream_t stream) {
-  static cudaError_t attr = allow_smem(flash_da_kernel<T>, SMEM_BYTES);
+int launch(const void* q, int qsb, int qsh, int qss, const void* k, const void* v, int sb,
+           int sh, int ss, const void* posk, const void* posq, const void* mask, void* out,
+           int B, int H, int Sq, int S, int q_off, float inv_scale, cudaStream_t stream) {
+  static cudaError_t attr = allow_smem(flash_da_kernel<T, false>, SMEM_BYTES);
+  static cudaError_t attr_all = allow_smem(flash_da_kernel<T, true>, SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_da_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, sb, sh, ss, (const T*)posk, (const T*)posq,
-      (const int*)mask, (T*)out, H, S, inv_scale);
+  if (attr_all != cudaSuccess) return (int)attr_all;
+  const bool all_rows = Sq == S && q_off == 0 && qsb == sb && qsh == sh && qss == ss;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  (all_rows ? flash_da_kernel<T, true> : flash_da_kernel<T, false>)<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      (const T*)q, qsb, qsh, qss, (const T*)k, (const T*)v, sb, sh, ss, (const T*)posk,
+      (const T*)posq, (const int*)mask, (T*)out, H, Sq, S, q_off, inv_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v: [B, H, S, 64] with element strides
-// (sb, sh, ss) and a unit last stride; posk/posq: [H, 2S-1, 64] contiguous;
-// mask: [B, S] int32; out: [B, S, H, 64] contiguous.
-extern "C" int gct_flash_disentangled_attention(int dtype, const void* q, const void* k,
-                                                const void* v, int sb, int sh, int ss,
-                                                const void* posk, const void* posq,
-                                                const void* mask, void* out, int B, int H,
-                                                int S, float inv_scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. q: [B, H, Sq, 64] with element strides
+// (qsb, qsh, qss), the query rows q_off .. q_off + Sq - 1; k/v: [B, H, S, 64]
+// with element strides (sb, sh, ss); all with a unit last stride; posk/posq:
+// [H, 2S-1, 64] contiguous; mask: [B, S] int32; out: [B, Sq, H, 64]
+// contiguous. 1 <= Sq, 0 <= q_off, q_off + Sq <= S.
+extern "C" int gct_flash_disentangled_attention(int dtype, const void* q, int qsb, int qsh,
+                                                int qss, const void* k, const void* v, int sb,
+                                                int sh, int ss, const void* posk,
+                                                const void* posq, const void* mask, void* out,
+                                                int B, int H, int Sq, int S, int q_off,
+                                                float inv_scale, void* stream) {
+  if (Sq < 1 || q_off < 0 || q_off + Sq > S) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, sb, sh, ss, posk, posq, mask, out, B, H, S, inv_scale, st);
+    return launch<float>(q, qsb, qsh, qss, k, v, sb, sh, ss, posk, posq, mask, out, B, H, Sq,
+                         S, q_off, inv_scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, sb, sh, ss, posk, posq, mask, out, B, H, S,
-                                 inv_scale, st);
+    return launch<__nv_bfloat16>(q, qsb, qsh, qss, k, v, sb, sh, ss, posk, posq, mask, out, B,
+                                 H, Sq, S, q_off, inv_scale, st);
   return (int)cudaErrorInvalidValue;
 }

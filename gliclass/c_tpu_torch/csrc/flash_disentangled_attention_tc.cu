@@ -49,6 +49,13 @@
 // at the end. A block takes 72 KB of shared memory and a thread 165
 // registers (no spills): three blocks (12 warps) share an SM.
 //
+// A query-row offset (sequence parallelism), as the CUDA-core K1: q may hold
+// only Sq rows, the absolute rows q_off .. q_off + Sq - 1 of the S keys, with
+// strides of its own; the c2p/p2c windows follow the tile's absolute rows.
+// Every row reads only its own scores, and a row's products, sums and
+// rounding do not depend on where in a tile it sits, so its result is the
+// full launch's bit for bit.
+//
 // Edges as the CUDA-core K1: any S, ragged last tiles (q, k, v rows and
 // window rows outside the tables are zero), masked keys at a finite -1e30 (a
 // key tile wholly masked at the start of a row gives 2^0 = 1 terms that the
@@ -73,10 +80,11 @@ constexpr int SMEM = R * LDS * 4 + (2 * KT + 2 * WIN) * LDH * 2;  // scores; k, 
 constexpr float LOG2E = 1.4426950408889634f;
 
 __global__ void __launch_bounds__(THREADS, 3)
-flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   long long sb, long long sh, long long ss, const bf16* __restrict__ posk,
-                   const bf16* __restrict__ posq, const int* __restrict__ mask, bf16* __restrict__ out,
-                   int H, int S, bool vec_qkv, bool vec_pos, float scale_log2) {
+flash_da_tc_kernel(const bf16* __restrict__ q, long long qsb, long long qsh, long long qss,
+                   const bf16* __restrict__ k, const bf16* __restrict__ v, long long sb, long long sh, long long ss,
+                   const bf16* __restrict__ posk, const bf16* __restrict__ posq, const int* __restrict__ mask,
+                   bf16* __restrict__ out, int H, int Sq, int S, int q_off, bool vec_qkv, bool vec_pos,
+                   float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Sc = reinterpret_cast<float*>(smem);        // [R][LDS] scores of this key tile, in log2 units
   bf16* Ks = reinterpret_cast<bf16*>(Sc + R * LDS);  // [KT][LDH] k tile
@@ -85,12 +93,13 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   bf16* Vs = Wq + WIN * LDH;                         // [KT][LDH] v tile; the q tile before tile 0's v
 
   const int i0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int a0 = i0 + q_off;  // the tile's first absolute query row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int m0 = warp * 16;  // the warp's strip: query rows in q.k and c2p, keys in p2c
   const int base = band_base(warp);
   const auto all = [](int) { return true; };
   const long long off = b * sb + h * sh;
-  const bf16* qb = q + off;
+  const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + off;
   const bf16* vb = v + off;
   const int W = 2 * S - 1;
@@ -98,11 +107,12 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   const bf16* pq = posq + (size_t)h * W * D;
   const int* mb = mask + (size_t)b * S;
 
-  // Rows of q, k or v (null beyond S), and rows of a relative table (null
-  // outside it and for the window's pad row).
+  // Rows of k or v (null beyond S), of q (null beyond Sq), and rows of a
+  // relative table (null outside it and for the window's pad row).
   const auto rows = [&](const bf16* x, int r0) {
     return [=](int r) -> const bf16* { return r0 + r < S ? x + (long long)(r0 + r) * ss : nullptr; };
   };
+  const auto q_rows = [&](int r) -> const bf16* { return i0 + r < Sq ? qb + (long long)(i0 + r) * qss : nullptr; };
   const auto window = [&](const bf16* table, int first) {
     return [=](int w) -> const bf16* {
       const int m = first + w;
@@ -111,10 +121,10 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   };
   const auto stage_kw = [&](int j0) {
     stage<KT, THREADS>(rows(kb, j0), vec_qkv, kb, Ks);
-    stage<WIN, THREADS>(window(pk, j0 - i0 + S - R), vec_pos, pk, Wk);
-    stage<WIN, THREADS>(window(pq, i0 - j0 + S - KT), vec_pos, pq, Wq);
+    stage<WIN, THREADS>(window(pk, j0 - a0 + S - R), vec_pos, pk, Wk);
+    stage<WIN, THREADS>(window(pq, a0 - j0 + S - KT), vec_pos, pq, Wq);
   };
-  stage<R, THREADS>(rows(qb, i0), vec_qkv, qb, Vs);
+  stage<R, THREADS>(q_rows, vec_qkv, qb, Vs);
   stage_kw(0);
   cp_async_commit();
 
@@ -244,7 +254,7 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   }
 
   // The row sums over the quad and one reciprocal per row; the context
-  // rounded to bf16 into [B, S, H, 64].
+  // rounded to bf16 into [B, Sq, H, 64].
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float l = l_run[hh];
@@ -252,8 +262,8 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
     const int i = i0 + m0 + g + 8 * hh;
-    if (i >= S) continue;
-    bf16* orow = out + (((size_t)b * S + i) * H + h) * D + 2 * t;
+    if (i >= Sq) continue;
+    bf16* orow = out + (((size_t)b * Sq + i) * H + h) * D + 2 * t;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8) =
@@ -263,23 +273,28 @@ flash_da_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 
 }  // namespace
 
-// bf16 only. q/k/v: [B, H, S, 64] with element strides (sb, sh, ss) and a unit
-// last stride; posk/posq: [H, 2S-1, 64] contiguous; mask: [B, S] int32; out:
-// [B, S, H, 64] contiguous. S >= 1, at most 65,535 query tiles.
-extern "C" int gct_flash_disentangled_attention_tc(const void* q, const void* k, const void* v, long long sb,
-                                                   long long sh, long long ss, const void* posk, const void* posq,
-                                                   const void* mask, void* out, int B, int H, int S, float inv_scale,
-                                                   void* stream) {
-  if (S < 1 || B < 1 || H < 1 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+// bf16 only. q: [B, H, Sq, 64] with element strides (qsb, qsh, qss), the
+// query rows q_off .. q_off + Sq - 1; k/v: [B, H, S, 64] with element strides
+// (sb, sh, ss); all with a unit last stride; posk/posq: [H, 2S-1, 64]
+// contiguous; mask: [B, S] int32; out: [B, Sq, H, 64] contiguous. 1 <= Sq,
+// 0 <= q_off, q_off + Sq <= S, at most 65,535 query tiles.
+extern "C" int gct_flash_disentangled_attention_tc(const void* q, long long qsb, long long qsh, long long qss,
+                                                   const void* k, const void* v, long long sb, long long sh,
+                                                   long long ss, const void* posk, const void* posq,
+                                                   const void* mask, void* out, int B, int H, int Sq, int S,
+                                                   int q_off, float inv_scale, void* stream) {
+  if (Sq < 1 || q_off < 0 || q_off + Sq > S || B < 1 || H < 1 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
   static cudaError_t attr = allow_smem(flash_da_tc_kernel, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   // cp.async copies of rows need 16-byte aligned rows.
-  const bool vec_qkv = sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0 && (uintptr_t)q % 16 == 0 &&
-                       (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const bool vec_qkv = sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0 && qsb % 8 == 0 && qsh % 8 == 0 &&
+                       qss % 8 == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+                       (uintptr_t)v % 16 == 0;
   const bool vec_pos = (uintptr_t)posk % 16 == 0 && (uintptr_t)posq % 16 == 0;
-  dim3 grid((S + R - 1) / R, H, B);
+  dim3 grid((Sq + R - 1) / R, H, B);
   flash_da_tc_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, ss, (const bf16*)posk, (const bf16*)posq,
-      (const int*)mask, (bf16*)out, H, S, vec_qkv, vec_pos, inv_scale * LOG2E);
+      (const bf16*)q, qsb, qsh, qss, (const bf16*)k, (const bf16*)v, sb, sh, ss, (const bf16*)posk,
+      (const bf16*)posq, (const int*)mask, (bf16*)out, H, Sq, S, q_off, vec_qkv, vec_pos, inv_scale * LOG2E);
   return (int)cudaGetLastError();
 }

@@ -9,17 +9,30 @@ current CUDA stream and the host syncs only when it reads the probabilities.
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do); with no GPU and no explicit device it raises rather than fall back.
 
-Over a mesh of ``dp * tp`` ranks (``parallel.mesh``; ``runtime.dp_size`` and
-``tp_size`` over an initialised world) every rank builds the same engine and
-calls the same entry with the same inputs (SPMD, the JAX package's
-multi-process lockstep). Each holds its shards of the model
-(``parallel.sharding``), runs its contiguous slice of the batch rows (the
-row bucket is a multiple of dp), and gathers the whole [B, L]
-probabilities over its data group, as JAX's replicated outputs.
+Over a mesh of ``dp * sp * tp`` ranks (``parallel.mesh``; ``runtime.
+dp_size``, ``sp_size`` and ``tp_size`` over an initialised world) every
+rank builds the same engine and calls the same entry with the same inputs
+(SPMD, the JAX package's multi-process lockstep). Each holds its shards of
+the model (``parallel.sharding``), runs its contiguous slice of the batch
+rows (the row bucket is a multiple of dp) and, at a seq bucket that sp
+divides, its block of the tokens (``models.gliclass.encode_backbone``; other
+buckets run seq-replicated, as the JAX package's ``seq_sharding``), and
+gathers the whole [B, L] probabilities over its data group, as JAX's
+replicated outputs.
+
+Serving over a mesh is lockstep: one rank leads (:meth:`InferenceEngine.
+lead`: rank 0 runs the scheduler and the HTTP server) and, before every
+forward, broadcasts a header (op code, B, S, max_labels) and the padded ids
+and mask over the mesh's gloo control group; every other rank runs
+:meth:`InferenceEngine.follow`, which receives each header and runs the
+same forward, until the leader's :meth:`InferenceEngine.stop_followers`.
 """
 
 from __future__ import annotations
 
+import sys
+import threading
+import traceback
 from typing import Any
 
 import numpy as np
@@ -30,7 +43,7 @@ from .convert.params import params_from_numpy
 from .models.gliclass import gliclass_probs
 from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
-from .parallel.collectives import all_gather_rows, model_parallel
+from .parallel.collectives import all_gather_rows, broadcast, model_parallel, seq_parallel
 from .parallel.mesh import Mesh, make_mesh, single_device_mesh
 from .parallel.sharding import apply_plan, shard_plan
 from .tokenization import TokenizedBatch
@@ -43,6 +56,9 @@ torch.backends.cudnn.allow_tf32 = False
 Params = dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+# Op codes of the lockstep header [op, B, S, max_labels].
+OP_FORWARD, OP_STOP = 1, 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -117,20 +133,17 @@ class InferenceEngine:
         mesh: Mesh | None = None,
     ):
         """``mesh``: this rank's mesh; by default one of ``runtime.dp_size``
-        x ``runtime.tp_size`` ranks over the initialised world (a single
-        device when both are 1). The tree is sharded before q/k/v are fused
-        and before the [N, K] FFN weights are made."""
+        x ``runtime.sp_size`` x ``runtime.tp_size`` ranks over the
+        initialised world (a single device when all are 1). The tree is
+        sharded before q/k/v are fused and before the [N, K] FFN weights are
+        made."""
         self.cfg = cfg
         self.runtime = runtime or RuntimeConfig()
         rt = self.runtime
-        if rt.sp_size != 1:
-            raise ValueError(
-                f"sp_size={rt.sp_size}: sequence parallelism is not ported (ROADMAP.md queue 1, item 8)"
-            )
         if mesh is None:
             dev = resolve_device(device)
-            n = rt.dp_size * rt.tp_size
-            mesh = single_device_mesh(dev) if n == 1 else make_mesh(rt.dp_size, rt.tp_size, device=dev)
+            n = rt.dp_size * rt.sp_size * rt.tp_size
+            mesh = single_device_mesh(dev) if n == 1 else make_mesh(rt.dp_size, rt.tp_size, rt.sp_size, dev)
         self.mesh = mesh
         self.device = mesh.device if device is None else resolve_device(device)
         self.compute_dtype = _DTYPES[rt.compute_dtype]
@@ -148,11 +161,17 @@ class InferenceEngine:
         if rt.fuse_qkv:
             params = fuse_qkv_params(params, cfg)
         self.params = params
+        # Lockstep serving: whether this rank leads its mesh, and the lock that
+        # keeps each header and its forward together when several threads
+        # issue forwards.
+        self._leading = False
+        self._lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def _forward(self, ids: torch.Tensor, mask: torch.Tensor, max_labels: int) -> torch.Tensor:
         m = self.mesh
-        with torch.inference_mode(), act_quant(self._act_quant), model_parallel(m.model_group, self.plan.pairs):
+        with (torch.inference_mode(), act_quant(self._act_quant), model_parallel(m.model_group, self.plan.pairs),
+              seq_parallel(m.seq_group)):
             if m.dp > 1:  # this data rank's contiguous rows
                 n = ids.shape[0] // m.dp
                 ids, mask = ids[m.data_rank * n:(m.data_rank + 1) * n], mask[m.data_rank * n:(m.data_rank + 1) * n]
@@ -161,6 +180,59 @@ class InferenceEngine:
                 self.runtime.attn_route,
             )
             return all_gather_rows(probs, m.data_group)
+
+    def _step(self, ids: np.ndarray, mask: np.ndarray, max_labels: int, dev_inputs=None) -> torch.Tensor:
+        """One forward of host arrays ``ids``/``mask`` [B, S] (``dev_inputs``:
+        them on the device already); as the leader, broadcast first."""
+        with self._lock:
+            if self._leading:
+                self._send(OP_FORWARD, ids, mask, max_labels)
+            return self._forward(*(dev_inputs or self._device_inputs(ids, mask)), max_labels)
+
+    # ------------------------------------------------------------------
+    # Lockstep serving over a multi-rank mesh
+    # ------------------------------------------------------------------
+    def lead(self) -> None:
+        """Make this rank (global rank 0) the leader of its mesh: from now
+        on every forward of :meth:`run`, :meth:`run_async`,
+        :meth:`run_stacked_async` and :meth:`warmup` first broadcasts its
+        inputs to the followers. A no-op on one rank."""
+        if self.mesh.size == 1:
+            return
+        if self.mesh.control_group is None:
+            raise ValueError("lead: the mesh has no control group (parallel.mesh.make_mesh makes one)")
+        self._leading = True
+
+    def follow(self) -> int:
+        """Every rank but the leader: run the leader's forwards, one for each
+        header received, until the stop header (returns 0). A forward that
+        raises is reported on stderr and the loop goes on, as the leader
+        answers that batch with the error and goes on; a failed broadcast
+        (the leader gone: gloo reports the closed connection) raises."""
+        group = self.mesh.control_group
+        header = torch.zeros(4, dtype=torch.int64)
+        while True:
+            op, B, S, max_labels = broadcast(header, group).tolist()
+            if op == OP_STOP:
+                return 0
+            data = broadcast(torch.empty((2, B, S), dtype=torch.int32), group)
+            try:
+                self._forward(*(t.to(self.device) for t in data), max_labels)
+            except Exception:  # the leader answers the batch with the error; stay in step
+                traceback.print_exc(file=sys.stderr)
+
+    def stop_followers(self) -> None:
+        """As the leader: end every follower's :meth:`follow` (idempotent)."""
+        with self._lock:
+            if self._leading:
+                self._leading = False
+                broadcast(torch.tensor([OP_STOP, 0, 0, 0], dtype=torch.int64), self.mesh.control_group)
+
+    def _send(self, op: int, ids: np.ndarray, mask: np.ndarray, max_labels: int) -> None:
+        group = self.mesh.control_group
+        B, S = ids.shape
+        broadcast(torch.tensor([op, B, S, max_labels], dtype=torch.int64), group)
+        broadcast(torch.from_numpy(np.stack([ids, mask]).astype(np.int32, copy=False)), group)
 
     def _device_inputs(self, ids: np.ndarray, mask: np.ndarray):
         return (
@@ -242,7 +314,7 @@ class InferenceEngine:
                     ids = np.full((b, s), pad, dtype=np.int32)
                     mask = np.zeros((b, s), dtype=np.int32)
                     mask[:, 0] = 1
-                    last = self._forward(*self._device_inputs(ids, mask), lb)
+                    last = self._step(ids, mask, lb)
                     n += 1
             if log:
                 log(f"warmup: seq {s} done ({n} steps)")
@@ -260,7 +332,7 @@ class InferenceEngine:
         """Dispatch without waiting; returns (device tensor [B, L], n_valid).
         The host can tokenize the next batch while the card computes."""
         ids, mask, n = self._pad_batch(batch)
-        return self._forward(*self._device_inputs(ids, mask), max_labels), n
+        return self._step(ids, mask, max_labels), n
 
     def run_stacked_async(self, ids: np.ndarray, mask: np.ndarray, max_labels: int):
         """Dispatch ``nb`` same-shape batches ([nb, B, S], padded per
@@ -268,7 +340,8 @@ class InferenceEngine:
         [nb, B, max_labels]. Padded rows are garbage and padded label slots 0;
         the caller slices them off."""
         ids_t, mask_t = self._device_inputs(ids, mask)
-        return torch.stack([self._forward(ids_t[i], mask_t[i], max_labels) for i in range(ids.shape[0])])
+        return torch.stack([self._step(ids[i], mask[i], max_labels, (ids_t[i], mask_t[i]))
+                            for i in range(ids.shape[0])])
 
     # ------------------------------------------------------------------
     @classmethod

@@ -24,6 +24,18 @@ comes from the local projection's width, and each attention and FFN block
 ends with the sum over the model group (``ops.layers.row_linear``).
 LayerNorms, embeddings, the relative embeddings and the conv stem are
 replicated.
+
+Under sequence parallelism (``seq``, a ``parallel.collectives.SeqShard``
+that ``models.gliclass.encode_backbone`` passes) each seq rank embeds and
+runs the norms, the projections and the FFN on its block of S/sp tokens;
+attention all-gathers k and v over the seq group and runs the rank's query
+rows at their offset (K1 with ``q_off``; the score path's c2p/p2c skewed at
+the offset, the pair mask's rows). The position tables stay those of the
+whole S. The forced ``bias``, ``row`` and ``tiled`` routes gather q as
+well, run their kernels over all S and keep the rank's rows, as XLA's
+partitioner runs a ``pallas_call`` under the JAX package's sequence
+parallelism. The conv stem gathers its input, the embedding output, whose
+(k - 1) / 2 neighbour rows on each side its taps read.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ from ..ops.fused_attention import (
 )
 from ..ops.fused_ffn import fused_ffn
 from ..ops.layers import activation, layer_norm, linear, masked_softmax, row_linear
-from ..parallel.collectives import copy_to_model, tp_group
+from ..parallel.collectives import SeqShard, all_gather_seq, copy_to_model, tp_group
 from . import _init
 
 Params = dict[str, Any]
@@ -99,13 +111,19 @@ def rel_bias_columns(
     return c2p, p2c
 
 
-def rel_to_abs(x: torch.Tensor) -> torch.Tensor:
-    """[..., S, 2S-1] relative-axis scores -> [..., S, S] absolute scores with
-    out[..., i, j] = x[..., i, j - i + S - 1]."""
-    *lead, S, W = x.shape
-    assert W == 2 * S - 1, (S, W)
-    r = torch.arange(S, device=x.device)
-    idx = (r[None, :] - r[:, None] + (S - 1)).expand(*lead, S, S)
+def rel_to_abs(x: torch.Tensor, n_cols: int | None = None, row_off: int = 0, col_off: int = 0) -> torch.Tensor:
+    """[..., R, 2S-1] relative-axis scores -> [..., R, n_cols] absolute scores
+    with out[..., r, c] = x[..., r, (c + col_off) - (r + row_off) + S - 1]:
+    row r and column c stand at positions r + row_off and c + col_off of the
+    S. By default R = n_cols = S: out[..., i, j] = x[..., i, j - i + S - 1]."""
+    *lead, R, W = x.shape
+    S = (W + 1) // 2
+    if W != 2 * S - 1 or (n_cols is None and R != S):
+        raise ValueError(f"rel_to_abs: {R} rows of {W} relative columns")
+    n_cols = S if n_cols is None else n_cols
+    r = torch.arange(R, device=x.device)
+    c = torch.arange(n_cols, device=x.device)
+    idx = ((c[None, :] + col_off) - (r[:, None] + row_off) + (S - 1)).expand(*lead, R, n_cols)
     return torch.gather(x, -1, idx)
 
 
@@ -172,18 +190,26 @@ def disentangled_attention(
     compute_dtype,
     key_mask: torch.Tensor,
     route: str = "flash",
+    seq: SeqShard | None = None,
 ) -> torch.Tensor:
     """One disentangled self-attention block through a kernel route,
     ``route`` "flash" (K1), "bias" (K6 + bias products + K7), "row" (K8) or
     "tiled" (K9 + K10).
 
     c2p_cols/p2c_cols: [2S-1] int64 rows of the projected position table per
-    relative offset (:func:`rel_bias_columns`); key_mask: [B, S] int32."""
+    relative offset (:func:`rel_bias_columns`); key_mask: [B, S] int32. With
+    ``seq``, x holds this seq rank's tokens ``seq.rows`` of the S."""
     group = tp_group("attn")
     x, rel_emb = copy_to_model(x, group), copy_to_model(rel_emb, group)
     scale = math.sqrt(cfg.head_dim * (1 + len(cfg.pos_att_type)))
     q, k, v = _qkv(p_attn, x, cfg.head_dim, compute_dtype)
     nh = q.shape[1]
+    q_off = 0
+    if seq is not None and route == "flash":  # the rank's query rows at their offset
+        k, v = all_gather_seq(torch.stack((k, v)), 3, seq.group).unbind(0)
+        q_off = seq.off
+    elif seq is not None:  # the whole kernel over every row, the rank's rows kept
+        q, k, v = all_gather_seq(torch.stack((q, k, v)), 3, seq.group).unbind(0)
     pos_q_flat, pos_k_flat = _pos_qk(p_attn, rel_emb, cfg, compute_dtype)
     pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols).contiguous()
     pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols).contiguous()
@@ -197,7 +223,9 @@ def disentangled_attention(
     elif route == "row":
         ctx = row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
     else:
-        ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale)
+        ctx = flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, key_mask, scale, q_off)
+    if seq is not None and route != "flash":
+        ctx = ctx[:, :, seq.rows]
     return row_linear(p_attn["o"], _merge_heads(ctx), compute_dtype, group)
 
 
@@ -210,15 +238,22 @@ def score_attention(
     p2c_cols: torch.Tensor,
     cfg: BackboneConfig,
     compute_dtype,
+    seq: SeqShard | None = None,
 ) -> torch.Tensor:
     """The materialized-score formulation (the JAX package's XLA path):
     [B, h, S, S] scores, relative-axis c2p/p2c skewed by :func:`rel_to_abs`,
-    pair mask at finfo.min (fp32) or -1e4 (reduced precision), softmax."""
+    pair mask at finfo.min (fp32) or -1e4 (reduced precision), softmax.
+    With ``seq``, x holds the rank's tokens ``seq.rows`` and pair_mask their
+    rows [B, n, S]: the scores are [B, h, n, S] against the gathered k, v."""
     group = tp_group("attn")
     x, rel_emb = copy_to_model(x, group), copy_to_model(rel_emb, group)
     scale = math.sqrt(cfg.head_dim * (1 + len(cfg.pos_att_type)))
     q, k, v = _qkv(p_attn, x, cfg.head_dim, compute_dtype)
     nh = q.shape[1]
+    n, off = q.shape[2], 0
+    if seq is not None:
+        k, v = all_gather_seq(torch.stack((k, v)), 3, seq.group).unbind(0)
+        off = seq.off
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
     scores = ((q.float() @ k.float().transpose(-1, -2)).to(score_dtype) / scale).to(score_dtype)
     if cfg.relative_attention:
@@ -226,11 +261,11 @@ def score_attention(
         if "c2p" in cfg.pos_att_type:
             pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols)
             c2p_rel = torch.einsum("bhid,hmd->bhim", q.float(), pos_k_rel.float())
-            scores = scores + rel_to_abs(c2p_rel.to(score_dtype)) / scale
+            scores = scores + rel_to_abs(c2p_rel.to(score_dtype), k.shape[2], row_off=off) / scale
         if "p2c" in cfg.pos_att_type:
             pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols)
             p2c_rel = torch.einsum("bhjd,hmd->bhjm", k.float(), pos_q_rel.float())
-            scores = scores + rel_to_abs(p2c_rel.to(score_dtype)).transpose(-1, -2) / scale
+            scores = scores + rel_to_abs(p2c_rel.to(score_dtype), n, col_off=off).transpose(-1, -2) / scale
     neg = _NEG_INF if score_dtype == torch.float32 else -1e4
     scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, neg))
     probs = masked_softmax(scores).to(compute_dtype)
@@ -249,16 +284,17 @@ def encoder_layer(
     compute_dtype,
     key_mask: torch.Tensor,
     route: str,
+    seq: SeqShard | None = None,
 ) -> torch.Tensor:
     """Post-LN transformer layer: attn -> add&norm -> FFN -> add&norm.
     ``route``: a kernel route, or "score" for the score formulation."""
     if route == "score":
         attn_out = score_attention(
-            p["attn"], x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg, compute_dtype
+            p["attn"], x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg, compute_dtype, seq
         )
     else:
         attn_out = disentangled_attention(
-            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route
+            p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route, seq
         )
     x = layer_norm(p["attn"]["ln"], attn_out + x, cfg.layer_norm_eps)
     h = fused_ffn(p["ffn"]["up"], p["ffn"]["down"], x, cfg.hidden_act, compute_dtype, tp_group("ffn"))
@@ -266,7 +302,8 @@ def encoder_layer(
 
 
 def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
-               attention_mask: torch.Tensor, cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
+               attention_mask: torch.Tensor, cfg: BackboneConfig, compute_dtype,
+               seq: SeqShard | None = None) -> torch.Tensor:
     """DeBERTa-v2 conv stem (``conv_kernel_size > 0``, the deberta-v2-xlarge
     family), transformers' ``ConvLayer`` after encoder layer 0: a "same"
     padded 1-D conv over the embedding output in the compute dtype with fp32
@@ -277,17 +314,23 @@ def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
     The conv is the sum over its k taps of shifted [B, S, H_in] @ [H_in,
     H_out] fp32 products: a plain matmul, so it never goes through cuDNN,
     whose ``allow_tf32`` (True by default) would round fp32 inputs to TF32's
-    ten mantissa bits."""
+    ten mantissa bits.
+
+    With ``seq`` the inputs hold the rank's tokens ``seq.rows``: the
+    embedding output is gathered over the seq group (the taps read (k - 1) /
+    2 neighbour rows on each side), and the conv runs for the rank's rows."""
     k = cfg.conv_kernel_size
     if k % 2 == 0:
         raise ValueError("conv_kernel_size must be odd (torch same-padding)")
-    S = embed_out.shape[1]
+    n, off = layer0_out.shape[1], 0
+    if seq is not None:
+        embed_out, off = all_gather_seq(embed_out, 1, seq.group), seq.off
     pad = (k - 1) // 2
     x = F.pad(embed_out.to(compute_dtype).float(), (0, 0, pad, pad))  # [B, S + k - 1, H_in]
     w = p["w"].to(compute_dtype).float()
-    out = p["b"].float() + x[:, :S] @ w[0]
+    out = p["b"].float() + x[:, off : off + n] @ w[0]
     for t in range(1, k):
-        out = out + x[:, t : t + S] @ w[t]
+        out = out + x[:, off + t : off + t + n] @ w[t]
     m = attention_mask[..., None].float()
     out = activation(cfg.conv_act)(out * m).to(compute_dtype)
     y = layer_norm(p["ln"], layer0_out + out, cfg.layer_norm_eps)
@@ -295,12 +338,13 @@ def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
 
 
 def embed(p: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-          cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
-    """Word embeddings -> (optional proj) -> LayerNorm -> zero padded positions."""
+          cfg: BackboneConfig, compute_dtype, pos_off: int = 0) -> torch.Tensor:
+    """Word embeddings -> (optional proj) -> LayerNorm -> zero padded
+    positions. ``pos_off``: the position of the first token (a seq rank's)."""
     x = p["word"].index_select(0, input_ids.reshape(-1).long())
     x = x.reshape(*input_ids.shape, -1).to(compute_dtype)
     if "pos" in p and cfg.position_biased_input:
-        x = x + p["pos"][: input_ids.shape[-1]].to(compute_dtype)
+        x = x + p["pos"][pos_off : pos_off + input_ids.shape[-1]].to(compute_dtype)
     if "proj" in p:
         x = linear(p["proj"], x, compute_dtype)
     x = layer_norm(p["ln"], x, cfg.layer_norm_eps)
@@ -319,10 +363,13 @@ def deberta_encode(
     compute_dtype=torch.float32,
     attn_route: str = "auto",
     return_all_layers: bool = False,
+    seq: SeqShard | None = None,
 ) -> torch.Tensor:
     """Full encoder forward: [B, S] ids + mask -> [B, S, H] hidden states.
     ``attn_route`` (RuntimeConfig.attn_route) is resolved once for the
     forward's (S, B) and device by ``ops.fused_attention.attention_route``.
+    With ``seq`` the states are this seq rank's tokens ``seq.rows`` only,
+    [B, S/sp, H] (ids and mask stay whole: the keys are every token).
 
     With ``return_all_layers`` the states stacked [L+1, B, S, H] in
     transformers' ``output_hidden_states`` order: the embedding output, then
@@ -330,10 +377,13 @@ def deberta_encode(
     one (the ``squeeze_layers`` fuser reads them)."""
     B, S = input_ids.shape
     dev = input_ids.device
-    x = embed(params["embeddings"], input_ids, attention_mask, cfg, compute_dtype)
+    rows = seq.rows if seq is not None else slice(None)
+    local_mask = attention_mask[:, rows]
+    x = embed(params["embeddings"], input_ids[:, rows], local_mask, cfg, compute_dtype,
+              seq.off if seq is not None else 0)
     key_mask = attention_mask.to(torch.int32).contiguous()
     mask_b = attention_mask.bool()
-    pair_mask = mask_b[:, :, None] & mask_b[:, None, :]
+    pair_mask = mask_b[:, rows, None] & mask_b[:, None, :]
 
     max_rel = cfg.max_relative_positions
     if max_rel < 1:
@@ -358,10 +408,10 @@ def deberta_encode(
     for i in range(n_layers):
         x = encoder_layer(
             _layer(layers, i), x, rel_emb, pair_mask, c2p_cols, p2c_cols, cfg,
-            compute_dtype, key_mask, route,
+            compute_dtype, key_mask, route, seq,
         )
         if i == 0 and cfg.conv_kernel_size > 0:
-            x = conv_layer(params["conv"], states[0], x, attention_mask, cfg, compute_dtype)
+            x = conv_layer(params["conv"], states[0], x, local_mask, cfg, compute_dtype, seq)
         if return_all_layers:
             states.append(x)
     return torch.stack(states) if return_all_layers else x

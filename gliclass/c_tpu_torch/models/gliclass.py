@@ -14,6 +14,7 @@ from typing import Any
 import torch
 
 from ..config import GLiClassConfig
+from ..parallel.collectives import all_gather_seq, seq_shard
 from .deberta import deberta_encode, init_deberta_params
 from .heads import bilstm, fuse_layers, gliclass_head, init_head_params, init_lstm_params
 from .llama import init_llama_params, llama_encode
@@ -29,19 +30,31 @@ def encode_backbone(
     compute_dtype,
     attn_route: str = "auto",
     return_all_layers: bool = False,
+    fuser: Params | None = None,
 ) -> torch.Tensor:
     """[B,S] ids + mask -> [B,S,H] hidden states of the configured backbone
-    (with ``return_all_layers``, every state stacked [L+1, B, S, H]).
-    ``attn_route`` selects the attention route (decoders: "xla"/"table" the
-    score path, any other K5)."""
+    (with ``return_all_layers``, every state stacked [L+1, B, S, H]; with
+    ``fuser``, the ``layers_fuser`` params, every state fused by
+    :func:`~.heads.fuse_layers`). ``attn_route`` selects the attention route
+    (decoders: "xla"/"table" the score path, any other K5).
+
+    Under ``parallel.collectives.seq_parallel``, at a length the seq group's
+    size divides, each seq rank encodes its block of the tokens
+    (``seq_shard``); the fuser, which is per token, runs on the block, and
+    the states are all-gathered once over the seq group. Other lengths run
+    seq-replicated."""
     bb = cfg.backbone
+    seq = seq_shard(input_ids.shape[1])
+    all_layers = return_all_layers or fuser is not None
     if bb.model_type == "deberta-v2":
-        return deberta_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route,
-                              return_all_layers)
-    if bb.model_type in ("llama", "qwen2"):
-        return llama_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route,
-                            return_all_layers)
-    raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
+        h = deberta_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route, all_layers, seq)
+    elif bb.model_type in ("llama", "qwen2"):
+        h = llama_encode(params, input_ids, attention_mask, bb, compute_dtype, attn_route, all_layers, seq)
+    else:
+        raise ValueError(f"unsupported backbone model_type: {bb.model_type!r}")
+    if fuser is not None:
+        h = fuse_layers(fuser, h)
+    return h if seq is None else all_gather_seq(h, -2, seq.group)
 
 
 def gliclass_forward(
@@ -64,10 +77,8 @@ def gliclass_forward(
         )
     hidden = encode_backbone(
         params["backbone"], input_ids, attention_mask, cfg, compute_dtype, attn_route,
-        return_all_layers=cfg.squeeze_layers,
+        fuser=params["layers_fuser"] if cfg.squeeze_layers else None,
     )
-    if cfg.squeeze_layers:
-        hidden = fuse_layers(params["layers_fuser"], hidden)
     if cfg.use_lstm:
         hidden = bilstm(params["lstm"], hidden, attention_mask)
     logits, _ = gliclass_head(

@@ -24,6 +24,13 @@ and its own columns of the MLP's intermediate; head counts come from the
 local projections' widths, and each attention and MLP block ends with the
 sum over the model group (``ops.layers.row_linear``). Norms and embeddings
 are replicated.
+
+Under sequence parallelism (``seq``, a ``parallel.collectives.SeqShard``)
+each seq rank embeds and runs the norms, projections and MLP on its block of
+S/sp tokens, with rotary embeddings at their absolute positions; attention
+all-gathers k and v over the seq group and runs the rank's query rows at
+their offset (K5 with ``q_off``; the score path with the causal bias's rows
+at the offset).
 """
 
 from __future__ import annotations
@@ -37,9 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import BackboneConfig, check_attn_route
-from ..ops.causal_attention import causal_flash_attention
+from ..ops.causal_attention import causal_flash_attention, causal_mask
 from ..ops.layers import linear, masked_softmax, rms_norm, row_linear
-from ..parallel.collectives import copy_to_model, tp_group
+from ..parallel.collectives import SeqShard, all_gather_seq, copy_to_model, tp_group
 from . import _init
 from .deberta import _layer, _split_heads
 
@@ -61,9 +68,13 @@ def rope_tables(seq_len: int, head_dim: int, theta: float) -> tuple[np.ndarray, 
 @functools.lru_cache(maxsize=64)
 def rope_device(seq_len: int, head_dim: int, theta: float, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`rope_tables` as f32 tensors on ``device``, built once per
-    shape and shared by every caller (read only)."""
+    shape and shared by every caller (read only). Made outside inference
+    mode even when the first caller runs in it (a served forward), so that
+    a later forward under autograd (the trainer's) may save them for its
+    backward."""
     cos, sin = rope_tables(seq_len, head_dim, theta)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -95,23 +106,35 @@ def _merge_heads(ctx: torch.Tensor) -> torch.Tensor:
     return ctx.reshape(B, nkv * g, S, d).transpose(1, 2).reshape(B, S, nkv * g * d)
 
 
+def _gather_kv(k: torch.Tensor, v: torch.Tensor, seq: SeqShard | None):
+    """Every token's k and v, gathered over the seq group under ``seq``."""
+    if seq is None:
+        return k, v
+    return all_gather_seq(torch.stack((k, v)), 3, seq.group).unbind(0)
+
+
 def llama_attention(p: Params, x: torch.Tensor, key_mask: torch.Tensor, cos, sin,
-                    cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
+                    cfg: BackboneConfig, compute_dtype, seq: SeqShard | None = None) -> torch.Tensor:
     """One causal GQA self-attention block through the K5 kernel route.
-    key_mask: [B, S] int32."""
+    key_mask: [B, S] int32. With ``seq``, x holds the rank's tokens
+    ``seq.rows`` (cos/sin their rows), run at their offset."""
     group = tp_group("attn")
     qg, k, v = _qkv_rope(p, copy_to_model(x, group), cos, sin, cfg, compute_dtype)
-    ctx = causal_flash_attention(qg, k, v, key_mask, 1.0 / math.sqrt(cfg.head_dim))
+    k, v = _gather_kv(k, v, seq)
+    ctx = causal_flash_attention(qg, k, v, key_mask, 1.0 / math.sqrt(cfg.head_dim),
+                                 seq.off if seq is not None else 0)
     return row_linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype, group)
 
 
 def score_attention(p: Params, x: torch.Tensor, mask_bias: torch.Tensor, cos, sin,
-                    cfg: BackboneConfig, compute_dtype) -> torch.Tensor:
+                    cfg: BackboneConfig, compute_dtype, seq: SeqShard | None = None) -> torch.Tensor:
     """The JAX package's materialized-score formulation (its XLA route):
     scores in the compute dtype (fp32 in fp32) divided by sqrt(d), the
-    additive [B, S, S] causal + padding bias, softmax, P.v with fp32 sums."""
+    additive [B, S, S] causal + padding bias, softmax, P.v with fp32 sums.
+    With ``seq``: the rank's rows, mask_bias [B, S/sp, S]."""
     group = tp_group("attn")
     qg, k, v = _qkv_rope(p, copy_to_model(x, group), cos, sin, cfg, compute_dtype)
+    k, v = _gather_kv(k, v, seq)
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
     scores = (torch.einsum("bkgid,bkjd->bkgij", qg.float(), k.float()).to(score_dtype)
               / math.sqrt(cfg.head_dim)).to(score_dtype)
@@ -121,11 +144,13 @@ def score_attention(p: Params, x: torch.Tensor, mask_bias: torch.Tensor, cos, si
     return row_linear(p["o"], _merge_heads(ctx.to(compute_dtype)), compute_dtype, group)
 
 
-def causal_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+def causal_mask_bias(attention_mask: torch.Tensor, seq: SeqShard | None = None) -> torch.Tensor:
     """[B, S] mask -> additive fp32 bias [B, S, S]: 0 where key j <= query i
-    and valid, finfo(f32).min elsewhere (the score route's mask)."""
+    and valid, finfo(f32).min elsewhere (the score route's mask). With
+    ``seq``, the rows of the rank's queries: [B, S/sp, S]."""
     S = attention_mask.shape[-1]
-    causal = torch.ones(S, S, dtype=torch.bool, device=attention_mask.device).tril()
+    n, off = (seq.n, seq.off) if seq is not None else (S, 0)
+    causal = causal_mask(n, S, attention_mask.device, off)
     ok = causal[None] & attention_mask.bool()[:, None, :]
     return torch.where(ok, 0.0, _NEG_INF).to(torch.float32)
 
@@ -140,7 +165,7 @@ def llama_mlp(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                  cfg: BackboneConfig, compute_dtype=torch.float32, attn_route: str = "auto",
-                 return_all_layers: bool = False) -> torch.Tensor:
+                 return_all_layers: bool = False, seq: SeqShard | None = None) -> torch.Tensor:
     """[B, S] ids + mask -> [B, S, H] hidden states (after the final norm).
 
     ``attn_route`` "xla" or "table" takes :func:`score_attention` (the JAX
@@ -150,15 +175,21 @@ def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.
     With ``return_all_layers`` the states stacked [L+1, B, S, H] in
     transformers' ``output_hidden_states`` order: the embedding output, the
     input of layers 1..L-1, and the final-normed output last (the raw output
-    of the last layer never appears)."""
+    of the last layer never appears).
+
+    With ``seq`` the states are this seq rank's tokens ``seq.rows`` only
+    (ids and mask stay whole: the keys are every token)."""
     check_attn_route(attn_route)
     B, S = input_ids.shape
-    x = params["embeddings"]["word"].index_select(0, input_ids.reshape(-1).long())
-    x = x.reshape(B, S, -1).to(compute_dtype)
+    rows = seq.rows if seq is not None else slice(None)
+    ids = input_ids[:, rows]
+    x = params["embeddings"]["word"].index_select(0, ids.reshape(-1).long())
+    x = x.reshape(*ids.shape, -1).to(compute_dtype)
     key_mask = attention_mask.to(torch.int32).contiguous()
     cos, sin = rope_device(S, cfg.head_dim, float(cfg.rope_theta), str(input_ids.device))
+    cos, sin = cos[rows], sin[rows]
     score = attn_route in ("xla", "table")
-    mask_bias = causal_mask_bias(attention_mask) if score else None
+    mask_bias = causal_mask_bias(attention_mask, seq) if score else None
 
     layers = params["layers"]
     n_layers = next(iter(layers["attn"]["o"].values())).shape[0]
@@ -169,9 +200,9 @@ def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.
         p = _layer(layers, i)
         a = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
         if score:
-            x = x + score_attention(p["attn"], a, mask_bias, cos, sin, cfg, compute_dtype)
+            x = x + score_attention(p["attn"], a, mask_bias, cos, sin, cfg, compute_dtype, seq)
         else:
-            x = x + llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype)
+            x = x + llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype, seq)
         m = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
         x = x + llama_mlp(p["mlp"], m, compute_dtype)
     final = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)

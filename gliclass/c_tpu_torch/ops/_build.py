@@ -29,7 +29,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     "gct_flash_disentangled_attention": [
-        _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+        _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
     ],
     "gct_fused_ffn_w8a8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_fused_ffn_w8a8_smem": [_I, _I],
@@ -37,7 +37,7 @@ _SIGNATURES = {
     "gct_fused_ffn_wonly_smem": [_I, _I],
     "gct_int8_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_causal_flash_attention": [
-        _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+        _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "gct_abs_pos_table": [_I, _P, _P, _I, _I, _I, _P],
     "gct_bias_fused_attention": [
@@ -55,12 +55,14 @@ _SIGNATURES = {
     "gct_int8_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_fused_ffn_wonly_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_causal_flash_attention_tc": [
-        _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+        _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "gct_bias_fused_attention_tc": [
         _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _I, _I, _I, _F, _P,
     ],
-    "gct_flash_disentangled_attention_tc": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "gct_flash_disentangled_attention_tc": [
+        _P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+    ],
     "gct_fused_ffn_w8a8_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_fused_ffn_w8a8_tc_up": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gct_fused_ffn_w8a8_tc_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -36,9 +36,11 @@ from . import _build
 # Kernel launches since the last reset (the main path's proof): K1, K6, K7,
 # K8, K9, K10; launches, launches_bias, launches_row and launches_tiled count
 # both variants of K1, K7, K8 and K10, the *_tc counters their tensor-core
-# launches.
+# launches; launches_offset the K1 launches at a query-row offset q_off > 0
+# (a sequence-parallel rank's rows).
 launches = 0
 launches_flash_tc = 0
+launches_offset = 0
 launches_table = 0
 launches_bias = 0
 launches_row = 0
@@ -66,20 +68,27 @@ def kernel_variant(*dtypes) -> str:
     return TENSOR_CORE if all(d == torch.bfloat16 for d in dtypes) else CUDA_CORE
 
 
-def rel_index(S: int, device) -> torch.Tensor:
-    """[S, S] int64 index with idx[i, j] = j - i + S - 1 (the relative axis)."""
+def rel_index(S: int, device, q_off: int = 0, Sq: int | None = None) -> torch.Tensor:
+    """[Sq, S] int64 index with idx[i, j] = j - (i + q_off) + S - 1 (the
+    relative axis of S keys for query rows q_off .. q_off + Sq - 1; by
+    default all S rows)."""
+    Sq = S if Sq is None else Sq
     r = torch.arange(S, device=device)
-    return r[None, :] - r[:, None] + (S - 1)
+    return r[None, :] - (r[:Sq, None] + q_off) + (S - 1)
 
 
-def _rel_biases(q, k, pos_k_rel, pos_q_rel):
-    """fp32 c2p[b,h,i,j] = q_i.pos_k_rel[j-i+S-1] and p2c[b,h,i,j] =
-    k_j.pos_q_rel[i-j+S-1], [B, h, S, S] each."""
-    B, h, S, d = q.shape
-    qp = torch.einsum("bhid,hmd->bhim", q.float(), pos_k_rel.float())  # [B, h, S, 2S-1]
-    kp = torch.einsum("bhjd,hmd->bhjm", k.float(), pos_q_rel.float())
-    idx = rel_index(S, q.device).expand(B, h, S, S)
-    return torch.gather(qp, -1, idx), torch.gather(kp, -1, idx).transpose(-1, -2)
+def _rel_biases(q, k, pos_k_rel, pos_q_rel, q_off: int = 0):
+    """fp32 c2p[b,h,i,j] = q_i.pos_k_rel[j-(i+q_off)+Sk-1] and p2c[b,h,i,j] =
+    k_j.pos_q_rel[(i+q_off)-j+Sk-1], [B, h, Sq, Sk] each: q holds the Sq
+    query rows from q_off on, k all Sk keys."""
+    B, h, Sq, d = q.shape
+    Sk = k.shape[2]
+    qp = torch.einsum("bhid,hmd->bhim", q.float(), pos_k_rel.float())  # [B, h, Sq, 2Sk-1]
+    kp = torch.einsum("bhjd,hmd->bhjm", k.float(), pos_q_rel.float())  # [B, h, Sk, 2Sk-1]
+    idx = rel_index(Sk, q.device, q_off, Sq)
+    c2p = torch.gather(qp, -1, idx.expand(B, h, Sq, Sk))
+    p2c = torch.gather(kp, -1, (2 * Sk - 2 - idx).T.expand(B, h, Sk, Sq))
+    return c2p, p2c.transpose(-1, -2)
 
 
 def _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale):
@@ -93,26 +102,38 @@ def _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale):
     return ctx.to(q.dtype)
 
 
-def _check_qkv(name, q, k, v, attention_mask):
-    """The checks every attention wrapper makes of q, k, v and the mask."""
-    B, h, S, d = q.shape
+def _check_qkv(name, q, k, v, attention_mask, q_off=None):
+    """The checks every attention wrapper makes of q, k, v and the mask.
+    With ``q_off`` (K1): q holds Sq query rows from row q_off on, q_off + Sq
+    <= Sk, with strides of its own; k and v hold all Sk keys."""
+    B, h, Sq, d = q.shape
+    S = k.shape[2]
     if d != HEAD_DIM:
         raise ValueError(f"{name}: head dim must be {HEAD_DIM}, got {d}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"{name}: q, k, v shapes differ")
-    if q.stride() != k.stride() or q.stride() != v.stride() or q.stride(-1) != 1:
-        raise ValueError(f"{name}: q, k, v need equal strides and a unit last stride")
+    if q_off is None:
+        if k.shape != q.shape or v.shape != q.shape:
+            raise ValueError(f"{name}: q, k, v shapes differ")
+        if q.stride() != k.stride() or q.stride() != v.stride() or q.stride(-1) != 1:
+            raise ValueError(f"{name}: q, k, v need equal strides and a unit last stride")
+    else:
+        if tuple(k.shape) != (B, h, S, d) or v.shape != k.shape:
+            raise ValueError(f"{name}: k and v must be [{B}, {h}, Sk, {d}] like q [{B}, {h}, Sq, {d}]")
+        if not (0 <= q_off and q_off + Sq <= S):
+            raise ValueError(f"{name}: query rows {q_off}..{q_off + Sq - 1} outside the {S} keys")
+        if k.stride() != v.stride() or q.stride(-1) != 1 or k.stride(-1) != 1:
+            raise ValueError(f"{name}: k and v need equal strides, and q, k, v a unit last stride")
     if attention_mask.dtype != torch.int32 or tuple(attention_mask.shape) != (B, S) or not attention_mask.is_contiguous():
         raise ValueError(f"{name}: attention_mask must be contiguous int32 [B, S]")
 
 
-def _check_rel_tables(name, q, pos_k_rel, pos_q_rel):
-    h, S, d = q.shape[1:]
+def _check_rel_tables(name, k, pos_k_rel, pos_q_rel):
+    """The tables of k's S keys: [h, 2S - 1, d] each, in k's dtype."""
+    h, S, d = k.shape[1:]
     for label, t in (("pos_k_rel", pos_k_rel), ("pos_q_rel", pos_q_rel)):
-        if t.dtype != q.dtype or tuple(t.shape) != (h, 2 * S - 1, d) or not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous {q.dtype} [{h}, {2 * S - 1}, {d}]")
+        if t.dtype != k.dtype or tuple(t.shape) != (h, 2 * S - 1, d) or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous {k.dtype} [{h}, {2 * S - 1}, {d}]")
 
 
 def _check_device(name, q, *others):
@@ -121,37 +142,44 @@ def _check_device(name, q, *others):
             raise ValueError(f"{name}: all tensors must be on one device")
 
 
-def flash_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
-    """Dense reference of the kernel. q, k, v [B, h, S, d]; pos_*_rel
-    [h, 2S-1, d]; attention_mask [B, S] (1 = valid key) -> [B, h, S, d]."""
-    c2p, p2c = _rel_biases(q, k, pos_k_rel, pos_q_rel)
+def flash_disentangled_attention_plain(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale, q_off=0):
+    """Dense reference of the kernel. q [B, h, Sq, d] (query rows q_off ..
+    q_off + Sq - 1), k, v [B, h, S, d]; pos_*_rel [h, 2S-1, d];
+    attention_mask [B, S] (1 = valid key) -> [B, h, Sq, d]."""
+    c2p, p2c = _rel_biases(q, k, pos_k_rel, pos_q_rel, q_off)
     return _online_softmax_pv(q, k, v, c2p, p2c, attention_mask, scale)
 
 
-def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale):
-    """Disentangled attention, kernel K1. q, k, v: [B, h, S, 64] (views with a
+def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale, q_off=0):
+    """Disentangled attention, kernel K1. k, v: [B, h, S, 64] (views with a
     unit last stride and the same strides, e.g. head splits of a fused
-    projection); pos_k_rel, pos_q_rel: [h, 2S-1, 64]; attention_mask: [B, S]
-    int32. Returns [B, h, S, 64], laid out in memory as [B, S, h, 64] so that
-    the merge of heads back to [B, S, h*64] is free. bf16 inputs launch the
-    tensor-core kernel, fp32 the CUDA-core one (:func:`kernel_variant`)."""
+    projection); q: [B, h, Sq, 64], query rows q_off .. q_off + Sq - 1 of
+    the S (all S by default; a sequence-parallel rank's block of rows), with
+    strides of its own and a unit last stride; pos_k_rel, pos_q_rel: [h,
+    2S-1, 64]; attention_mask: [B, S] int32. Returns [B, h, Sq, 64], laid
+    out in memory as [B, Sq, h, 64] so that the merge of heads back to [B,
+    Sq, h*64] is free. Each query row reads only its own scores, so the
+    rows of a launch at q_off equal those rows of the launch over all S bit
+    for bit. bf16 inputs launch the tensor-core kernel, fp32 the CUDA-core
+    one (:func:`kernel_variant`)."""
     _build.refuse_grad("flash_disentangled_attention", q, k, v, pos_k_rel, pos_q_rel)
     if not q.is_cuda:
         return flash_disentangled_attention_plain(
-            q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale
+            q, k, v, pos_k_rel, pos_q_rel, attention_mask, scale, q_off
         )
-    global launches, launches_flash_tc
+    global launches, launches_flash_tc, launches_offset
     name = "flash_disentangled_attention"
-    B, h, S, d = q.shape
-    _check_qkv(name, q, k, v, attention_mask)
-    _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
+    B, h, Sq, d = q.shape
+    S = k.shape[2]
+    _check_qkv(name, q, k, v, attention_mask, q_off)
+    _check_rel_tables(name, k, pos_k_rel, pos_q_rel)
     _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
     tc = kernel_variant(q.dtype) == TENSOR_CORE
-    if not tc and max(q.stride()[:3]) * B > 2**31 - 1:
+    if not tc and max(max(q.stride()[:3]), max(k.stride()[:3])) * B > 2**31 - 1:
         raise ValueError(f"{name}: strides exceed 32 bits")
-    out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pos_k_rel.data_ptr(),
-            pos_q_rel.data_ptr(), attention_mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale,
+    out = torch.empty((B, Sq, h, d), dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), *q.stride()[:3], k.data_ptr(), v.data_ptr(), *k.stride()[:3], pos_k_rel.data_ptr(),
+            pos_q_rel.data_ptr(), attention_mask.data_ptr(), out.data_ptr(), B, h, Sq, S, q_off, 1.0 / scale,
             _build.stream_ptr(q))
     if tc:
         rc = _build.lib().gct_flash_disentangled_attention_tc(*args)
@@ -160,6 +188,7 @@ def flash_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, 
     _build.check(rc, name)
     launches += 1
     launches_flash_tc += tc
+    launches_offset += q_off > 0
     return out.permute(0, 2, 1, 3)
 
 
@@ -298,7 +327,7 @@ def row_disentangled_attention(q, k, v, pos_k_rel, pos_q_rel, attention_mask, sc
     _check_qkv(name, q, k, v, attention_mask)
     if not 1 <= S <= ROW_MAX_SEQ:
         raise ValueError(f"{name}: S={S} outside 1..{ROW_MAX_SEQ}")
-    _check_rel_tables(name, q, pos_k_rel, pos_q_rel)
+    _check_rel_tables(name, k, pos_k_rel, pos_q_rel)
     _check_device(name, q, k, v, pos_k_rel, pos_q_rel, attention_mask)
     out = torch.empty((B, S, h, d), dtype=q.dtype, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pos_k_rel.data_ptr(),

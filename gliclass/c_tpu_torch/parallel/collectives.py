@@ -1,4 +1,5 @@
-"""The collectives of data and tensor parallelism, issued by the port itself.
+"""The collectives of data, sequence and tensor parallelism, issued by the
+port itself.
 
 JAX gets these from XLA's SPMD partitioner; the port has none, so the
 models call them where a sharded layer ends. These functions are the only
@@ -18,7 +19,18 @@ its backward all-reduces the replicated gradient again, multiplying it by
 the group's size.
 
 The models find the model group through :func:`model_parallel` (a context
-the engine and the trainer set around a forward) and :func:`tp_group`.
+the engine and the trainer set around a forward) and :func:`tp_group`, and
+the seq group through :func:`seq_parallel` and :func:`seq_shard`.
+
+Sequence parallelism is the JAX package's: XLA's partitioner shards the
+token axis of the activations over the seq axis and inserts the k/v
+all-gathers attention needs. Here each seq rank runs its block of S/sp
+tokens (:class:`SeqShard`) and :func:`all_gather_seq` gathers along the
+token axis; its backward is a reduce-scatter, the sum of the ranks'
+gradients of each block (as an all-reduce and a slice).
+
+Lockstep serving: :func:`broadcast` sends the leader's host tensors over the
+mesh's control group (``parallel.distributed.new_control_group``).
 
 Gloo and CUDA tensors: gloo's all-reduce takes them (staging them through
 host memory itself); its all-gather does not, so :func:`all_gather_rows`
@@ -106,6 +118,15 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return all_gather_rows(t.movedim(dim, 0), group).movedim(0, dim).contiguous()
 
 
+def broadcast(t: torch.Tensor, group) -> torch.Tensor:
+    """In place: every rank's ``t`` becomes global rank 0's (the serving
+    leader's); returns ``t``."""
+    if group_size(group) > 1:
+        with _counted(t):
+            dist.broadcast(t, src=0, group=group)
+    return t
+
+
 def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
     y = x.float().clone() if x.dtype == torch.float32 else x.float()
     return all_reduce_sum(y, group)
@@ -131,6 +152,31 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.to(ctx.dtype), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // group_size(ctx.group)
+        total = _sum_f32(g, ctx.group)
+        return total.narrow(ctx.dim, dist.get_rank(ctx.group) * n, n).to(g.dtype).contiguous(), None, None
+
+
+def all_gather_seq(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The seq ranks' blocks of ``t`` concatenated on the token axis ``dim``,
+    in seq-rank order. Backward: the reduce-scatter, the sum over the group
+    of the gradient of this rank's block (in fp32)."""
+    if group_size(group) == 1:
+        return t
+    dim = dim % t.dim()
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherSeq.apply(t, dim, group)
+    return all_gather_dim(t, dim, group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
@@ -182,3 +228,46 @@ def tp_group(pair: str):
     None."""
     tp = _TP_CTX.get()
     return tp.group if tp is not None and pair in tp.pairs else None
+
+
+# ---------------------------------------------------------------------------
+# The seq group, as the models see it
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SeqShard:
+    """This seq rank's block of a sequence: tokens ``off .. off + n - 1``."""
+
+    group: object
+    off: int
+    n: int
+
+    @property
+    def rows(self) -> slice:
+        return slice(self.off, self.off + self.n)
+
+
+_SP_CTX = contextvars.ContextVar("gliclass_torch_sp", default=None)
+
+
+@contextlib.contextmanager
+def seq_parallel(group):
+    """Within this context a sequence whose length the group's size divides
+    runs token-sharded over ``group`` (the mesh's seq group)."""
+    tok = _SP_CTX.set(group if group_size(group) > 1 else None)
+    try:
+        yield
+    finally:
+        _SP_CTX.reset(tok)
+
+
+def seq_shard(S: int) -> SeqShard | None:
+    """This rank's block of a length-S sequence, or None: outside
+    :func:`seq_parallel`, and where the group's size does not divide S (the
+    bucket then runs seq-replicated, as the JAX package's ``seq_sharding``
+    falls back)."""
+    group = _SP_CTX.get()
+    sp = group_size(group)
+    if sp == 1 or S % sp:
+        return None
+    n = S // sp
+    return SeqShard(group, dist.get_rank(group) * n, n)

@@ -15,6 +15,7 @@ so the variables above are the only source.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -74,6 +75,21 @@ def initialize_from_env(backend: str | None = None, device=None) -> bool:
         torch.cuda.set_device(lrank % n)
     dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
     return True
+
+
+# A serving follower waits on the control group for the next forward as long
+# as the server is idle: far past the 30-minute default of a gloo collective.
+CONTROL_TIMEOUT = datetime.timedelta(days=365)
+
+
+def new_control_group():
+    """A gloo group of every rank on the host, whatever the compute backend:
+    the control plane of lockstep serving, where the leader broadcasts each
+    forward's header and host arrays and no follower waits on its device for
+    one. Collective: every rank calls it, in its order among the other
+    group creations (``parallel.mesh.make_mesh`` does). A follower blocked
+    in a broadcast raises when gloo reports the leader's closed connection."""
+    return dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
 
 
 def process_info() -> dict:

@@ -9,7 +9,8 @@ with:
   * software pipelining: tokenization of the next chunk overlaps device
     execution of the dispatched batches (asynchronous CUDA launches);
   * one retry per failed batch, then a recorded :class:`BatchFailure` for its
-    texts while the rest of the job completes;
+    texts while the rest of the job completes (on a multi-rank mesh no
+    retry: see :func:`_retry_batch`);
   * for serving, :class:`StreamingScheduler`: continuous batching of
     requests from many threads over the same planning and dispatch.
 """
@@ -189,7 +190,19 @@ def _retry_batch(
     failures: list[BatchFailure] | None,
 ) -> None:
     """One synchronous retry; on a second failure record a BatchFailure (or
-    re-raise when there is no failure list)."""
+    re-raise when there is no failure list).
+
+    On a multi-rank mesh a failed batch is not retried: its texts get the
+    error at once. A retry is a forward of its own, and the streaming
+    scheduler would issue it from the drainer thread while the dispatcher
+    issues the next round's: every rank must run the mesh's forwards, and
+    their collectives, in one order, so only the dispatcher issues any."""
+    if engine.mesh.size > 1:
+        if failures is None:
+            raise first_error
+        failures.append(BatchFailure(
+            pb.indices, f"{type(first_error).__name__}: {first_error} (no retry on a {engine.mesh.size}-rank mesh)"))
+        return
     try:
         _scatter(pb, engine.run(pb.batch, pb.max_labels), out, max_label_count)
     except Exception as retry_error:

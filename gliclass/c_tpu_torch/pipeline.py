@@ -77,7 +77,7 @@ class ZeroShotClassificationPipeline:
         mesh=None,
     ) -> "ZeroShotClassificationPipeline":
         """``mesh``: this rank's ``parallel.mesh.Mesh`` (default from
-        ``runtime.dp_size``/``tp_size``, see ``InferenceEngine``)."""
+        ``runtime.dp_size``/``sp_size``/``tp_size``, see ``InferenceEngine``)."""
         from .convert import bundle as B
 
         engine = InferenceEngine.from_bundle(bundle_path, runtime, device, mesh)

@@ -23,6 +23,10 @@ bundle's ``max_num_classes`` get 400; requests caught by shutdown get 503;
 an engine failure gets 500 and the server keeps serving. The listener binds
 127.0.0.1 by default; for TLS, auth or public exposure put it behind a
 reverse proxy.
+
+Over a multi-rank mesh the server runs on the leading rank
+(``InferenceEngine.lead``); :meth:`GLiClassServer.close` stops the
+followers after the scheduler's last round.
 """
 
 from __future__ import annotations
@@ -144,6 +148,7 @@ class GLiClassServer:
         round_requests: int | None = None,
     ):
         self.runtime = runtime or engine.runtime
+        self.engine = engine
         self.scheduler = StreamingScheduler(
             engine, tokenizer, self.runtime, max_wait_ms=max_wait_ms, max_pending=max_pending,
             pipeline_depth=pipeline_depth, round_requests=round_requests,
@@ -242,9 +247,11 @@ class GLiClassServer:
     def close(self):
         """Stop accepting connections first, then close the scheduler, which
         fails every still-queued request (SchedulerClosed) so handler threads
-        blocked in classify() wake at once instead of at result_timeout_s."""
+        blocked in classify() wake at once instead of at result_timeout_s;
+        then, as a mesh's leader, stop the followers."""
         self.httpd.shutdown()
         self.scheduler.close()
+        self.engine.stop_followers()
         if self._thread is not None:
             self._thread.join(timeout=10)
         self.httpd.server_close()

@@ -1,5 +1,5 @@
 """GLiClass fine-tuning: the multi-label loss and the train step, on one
-device or over a (dp, tp) mesh of ``torch.distributed`` ranks.
+device or over a (dp, sp, tp) mesh of ``torch.distributed`` ranks.
 
 The port of ``gliclass.c_tpu.training.train``. The loss is multi-label BCE-with-logits over
 the valid label slots with optional focal re-weighting (the gliclass
@@ -21,7 +21,12 @@ are summed over the data group. Each model rank holds its shards
 (:func:`init_sharded_train_state`); their gradients come through the
 collectives' f/g functions, the gradient norm sums the sharded leaves over
 the model group and counts each replicated leaf once, and the optimizer,
-elementwise, updates the local shards.
+elementwise, updates the local shards. Each seq rank encodes its block of
+the tokens at a length sp divides (``models.gliclass.encode_backbone``)
+and runs the head on the whole gathered sequence; every gather's backward
+sums the ranks' gradients of each block, so a seq rank's encoder gradients
+are sp times its tokens' part and its head gradients the whole: their sum
+over the seq group divided by sp is the batch's gradient.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..config import GLiClassConfig
 from ..convert.params import params_from_numpy
 from ..engine import resolve_device
 from ..models.gliclass import gliclass_forward
-from ..parallel.collectives import all_reduce_sum, model_parallel
+from ..parallel.collectives import all_reduce_sum, model_parallel, seq_parallel
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import ShardPlan, apply_plan, local_shard_dims, shard_plan
 
@@ -104,7 +109,10 @@ def init_sharded_train_state(params: Params, optimizer: Callable[[list], torch.o
 
 def shard_batch(mesh: Mesh, ids, mask, *rest):
     """This data rank's rows of the batch arrays (numpy or tensors; the
-    batch axis first): a contiguous slice of B / dp rows."""
+    batch axis first): a contiguous slice of B / dp rows. The token axis is
+    cut inside the forward, as the JAX function's ``seq_sharding`` cuts it
+    (over seq where sp divides S, else replicated): every seq rank keeps the
+    whole rows, since the head reads every token's id."""
     B = ids.shape[0]
     if B % mesh.dp:
         raise ValueError(f"batch {B} not divisible by dp {mesh.dp}")
@@ -196,6 +204,18 @@ def _make_step(cfg, max_labels, compute_dtype, focal_alpha, focal_gamma, accum_s
             acc = ((preds == targets).float() * m).sum() / (m.sum() if count is None else count).clamp(min=1.0)
         return loss, acc
 
+    def _sum_grads(leaves, group, extra=(), scale=None):
+        """Sum the leaves' gradients (and ``extra`` scalars) over ``group``,
+        times ``scale``; returns the summed extras."""
+        flat = all_reduce_sum(torch.cat([t.grad.reshape(-1) for t in leaves] + [e.reshape(1) for e in extra]), group)
+        if scale is not None:
+            flat.mul_(scale)
+        off = 0
+        for t in leaves:
+            t.grad.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        return flat[off:]
+
     def step(state: TrainState, ids, mask, targets, target_mask):
         leaves = param_leaves(state.params)
         dev = leaves[0].device
@@ -208,9 +228,10 @@ def _make_step(cfg, max_labels, compute_dtype, focal_alpha, focal_gamma, accum_s
         mb = B // accum_steps
         plan = state.plan or ShardPlan(1)
         tp = model_parallel(mesh.model_group, plan.pairs) if mesh is not None else contextlib.nullcontext()
+        sp = seq_parallel(mesh.seq_group) if mesh is not None else contextlib.nullcontext()
         state.optimizer.zero_grad(set_to_none=True)
         loss = acc = 0.0
-        with tp:
+        with tp, sp:
             for k in range(accum_steps):
                 rows = slice(k * mb, (k + 1) * mb)
                 l, a = loss_fn(state.params, ids[rows], mask[rows], targets[rows], target_mask[rows])
@@ -223,16 +244,13 @@ def _make_step(cfg, max_labels, compute_dtype, focal_alpha, focal_gamma, accum_s
                 t.grad.mul_(1.0 / accum_steps)
         if accum_steps > 1:
             loss, acc = loss * (1.0 / accum_steps), acc * (1.0 / accum_steps)
+        if mesh is not None and mesh.sp > 1 and ids.shape[1] % mesh.sp == 0:
+            # The tokens ran sharded: the seq ranks' sum over sp (see the module docstring).
+            _sum_grads(leaves, mesh.seq_group, scale=1.0 / mesh.sp)
         if data is not None:
             # Each rank's loss divides by the whole batch's slots: the sums over
             # the data ranks are the whole batch's loss, accuracy and gradients.
-            flat = all_reduce_sum(torch.cat([t.grad.reshape(-1) for t in leaves] + [loss.reshape(1), acc.reshape(1)]),
-                                  data)
-            off = 0
-            for t in leaves:
-                t.grad.copy_(flat[off:off + t.numel()].view_as(t))
-                off += t.numel()
-            loss, acc = flat[off], flat[off + 1]
+            loss, acc = _sum_grads(leaves, data, (loss, acc))
         gnorm = torch.sqrt(_grad_sq(state, leaves))
         state.optimizer.step()
         state.step += 1

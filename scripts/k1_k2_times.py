@@ -64,8 +64,13 @@ def main() -> int:
     for B, S in ((128, 56), (128, 72), (64, 56), (32, 72), (128, 128), (16, 512)):
         q, k, v, pk, pq, mask = cs.rel_inputs(gen, dev, B, S, torch.bfloat16)
         out = torch.empty((B, S, h, d), dtype=torch.bfloat16, device=dev)
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pk.data_ptr(), pq.data_ptr(),
-                  mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q))
+        if len(_build._SIGNATURES["gct_flash_disentangled_attention"]) > 16:  # q's own strides, Sq, S, q_off
+            common = (q.data_ptr(), *q.stride()[:3], k.data_ptr(), v.data_ptr(), *k.stride()[:3], pk.data_ptr(),
+                      pq.data_ptr(), mask.data_ptr(), out.data_ptr(), B, h, S, S, 0, 1.0 / scale,
+                      _build.stream_ptr(q))
+        else:  # an older tree: one stride triple for q, k and v
+            common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], pk.data_ptr(), pq.data_ptr(),
+                      mask.data_ptr(), out.data_ptr(), B, h, S, 1.0 / scale, _build.stream_ptr(q))
         has_tc = hasattr(lib, "gct_flash_disentangled_attention_tc")  # an older tree has no tensor-core K1
         tc = lambda: _build.check(lib.gct_flash_disentangled_attention_tc(*common), "K1 tc")
         cc = lambda: _build.check(lib.gct_flash_disentangled_attention(1, *common), "K1 cc")

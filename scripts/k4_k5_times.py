@@ -70,8 +70,9 @@ def main() -> int:
         mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
         scale = 1.0 / math.sqrt(d)
         out = torch.empty((B, S, nh, d), dtype=torch.bfloat16, device=dev)
+        lens = (S, S, 0) if len(_build._SIGNATURES["gct_causal_flash_attention"]) > 23 else (S,)  # Sq, S, q_off
         common = (qg.data_ptr(), *qg.stride()[:4], k.data_ptr(), *k.stride()[:3], v.data_ptr(), *v.stride()[:3],
-                  mask.data_ptr(), out.data_ptr(), B, nkv, g, S, d, scale, _build.stream_ptr(qg))
+                  mask.data_ptr(), out.data_ptr(), B, nkv, g, *lens, d, scale, _build.stream_ptr(qg))
         tc = lambda: _build.check(lib.gct_causal_flash_attention_tc(*common), "K5 tc")
         cc = lambda: _build.check(lib.gct_causal_flash_attention(1, *common), "K5 cc")
         q4 = qg.reshape(B, nh, S, d)

@@ -82,6 +82,44 @@ def test_plain_accepts_head_split_views():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("S,rows", [(16, [(0, 8), (8, 8)]), (24, [(0, 6), (6, 6), (12, 6), (18, 6)]),
+                                    (20, [(5, 10), (19, 1)])])
+def test_plain_query_row_offset_is_the_rows_of_the_full_call(S, rows):
+    """K1's plain version at q_off (a seq rank's block of query rows, its own
+    strides: a slice of q) equals those rows of the call over all S, and
+    those rows of the JAX Pallas flash kernel (interpret mode) at 1e-5; in
+    bf16 too. Equal up to the CPU matmul's sum order, which follows the
+    operands' shapes: fp32 1e-6, bf16 one ulp of the largest output (the
+    kernels' rows are bit-equal: the card tests)."""
+    B, h, d = 2, 3, 8
+    q, k, v, pk, pq, mask = _inputs(9, B, h, S, d)
+    scale = math.sqrt(d * 3)
+    t = torch.from_numpy
+    full = FA.flash_disentangled_attention(t(q), t(k), t(v), t(pk), t(pq), t(mask), scale)
+    jfull = np.asarray(j_flash(*(jnp.asarray(a) for a in (q, k, v, pk, pq, mask)), scale, blk=4)) if S % 4 == 0 \
+        else np.asarray(xla_reference(*(jnp.asarray(a) for a in (q, k, v, pk, pq, mask)), scale))
+    for off, n in rows:
+        got = FA.flash_disentangled_attention(t(q)[:, :, off:off + n], t(k), t(v), t(pk), t(pq), t(mask), scale,
+                                              q_off=off)
+        assert got.shape == (B, h, n, d)
+        torch.testing.assert_close(got, full[:, :, off:off + n], atol=1e-6, rtol=1e-6)
+        _valid_rows_close(got.numpy(), jfull[:, :, off:off + n], mask[:, off:off + n])
+        bf = [x.to(torch.bfloat16) for x in (t(q), t(k), t(v), t(pk), t(pq))]
+        want = FA.flash_disentangled_attention(*bf, t(mask), scale)[:, :, off:off + n].float()
+        gotb = FA.flash_disentangled_attention(bf[0][:, :, off:off + n], *bf[1:], t(mask), scale, q_off=off)
+        torch.testing.assert_close(gotb.float(), want, atol=2.0 ** -8 * want.abs().max().item(), rtol=0)
+
+
+def test_rel_to_abs_at_row_and_column_offsets():
+    """The score path's skew of a seq rank's rows (c2p) and of its columns
+    (p2c): the blocks of the full skew."""
+    S, off, n = 12, 4, 4
+    x = torch.from_numpy(np.random.default_rng(10).normal(size=(2, S, 2 * S - 1)).astype(np.float32))
+    full = tdeb.rel_to_abs(x)
+    assert torch.equal(tdeb.rel_to_abs(x[:, off:off + n], S, row_off=off), full[:, off:off + n])
+    assert torch.equal(tdeb.rel_to_abs(x, n, col_off=off), full[:, :, off:off + n])
+
+
 @pytest.mark.parametrize("S", [5, 12])
 def test_rel_to_abs_matches_jax(S):
     x = np.random.default_rng(5).normal(size=(2, 3, S, 2 * S - 1)).astype(np.float32)

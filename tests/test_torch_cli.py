@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's, on a tiny bundle, on CPU:
 ``run`` (report and JSON), ``selftest`` (golden gate, INT8 F1 gate),
 ``serve`` wiring and a graceful SIGTERM, the route variable, ``convert``
-from a local checkpoint dir, and the commands the port refuses (``fetch``,
-``--model``, more than one card) failing with a clear message."""
+from a local checkpoint dir, the commands the port refuses (``fetch``,
+``--model``, a mesh without a launch) failing with a clear message, and
+``run --sp 2`` and ``serve --tp 2`` over two CPU gloo ranks."""
 
 import json
 import os
@@ -125,8 +126,9 @@ def test_selftest_int8_gate(tiny_bundle, capsys, flag):
 def test_unported_commands_fail_clearly(tiny_tokenizer_file, tiny_bundle, job_file, tmp_path, capsys):
     """`python -m gliclass.c_tpu_torch.cli convert` writes a bundle from a
     local checkpoint dir, and `selftest --dtype float32` passes on it;
-    `fetch` and `--model` (they download) and --dp/--tp/--sp other than 1
-    still fail with the reason."""
+    `fetch` and `--model` (they download) still fail with the reason, and
+    --dp/--tp/--sp other than 1 (run and serve alike) without a launch name
+    the launcher's variables."""
     import shutil
 
     from safetensors.torch import save_file
@@ -160,14 +162,14 @@ def test_unported_commands_fail_clearly(tiny_tokenizer_file, tiny_bundle, job_fi
 
     assert main(["fetch", "some/model"], device="cpu") == 2
     assert "downloads a checkpoint from the hub" in capsys.readouterr().err
-    # --dp/--tp without a launch name the launcher's variables; --sp and a
-    # multi-rank serve are not ported (ROADMAP.md queue 1, items 8 and 7).
+    # --dp/--tp/--sp without a launch name the launcher's variables, for
+    # run and for serve (which leads a mesh over a launch).
     for bad in (["--dp", "2"], ["--tp", "2"]):
         with pytest.raises(SystemExit, match="needs 2 ranks: launch 2 processes with .*MASTER_ADDR/MASTER_PORT"):
             main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, *bad], device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 8"):
+    with pytest.raises(SystemExit, match="--dp 1 --sp 2 --tp 1 needs 2 ranks: launch 2 processes"):
         main(["run", job_file, "--bundle", tiny_bundle, *FLAGS, "--sp", "2"], device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 7"):
+    with pytest.raises(SystemExit, match="--dp 1 --sp 1 --tp 2 needs 2 ranks: launch 2 processes"):
         main(["serve", "--bundle", tiny_bundle, *FLAGS, "--tp", "2"], device="cpu")
     with pytest.raises(SystemExit, match="downloads a checkpoint from the hub"):
         main(["run", job_file, "--model", "some/model", *FLAGS], device="cpu")
@@ -192,6 +194,95 @@ def test_run_tp2_two_ranks_same_report(tiny_bundle, job_file, tmp_path, capsys):
     assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
     assert _report(outs[0][0]) == want
     assert outs[1][0] == ""
+
+
+def _launch(code: str, world: int = 2, **popen):
+    """``python -c code`` on ``world`` ranks over torchrun's variables."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    return [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=dict(env, RANK=str(r)), **popen) for r in range(world)]
+
+
+def test_run_sp2_two_ranks_same_report(tiny_bundle, job_file, capsys):
+    """`run --sp 2` over two CPU ranks (each encodes half of every bucket's
+    tokens) prints, on rank 0 alone, the report of one process."""
+    assert main(["run", job_file, "--bundle", tiny_bundle, *FLAGS], device="cpu") == 0
+    want = _report(capsys.readouterr().out)
+    code = ("import sys; from gliclass.c_tpu_torch.cli import main; "
+            f"sys.exit(main(['run', {job_file!r}, '--bundle', {tiny_bundle!r}, *{FLAGS!r}, '--sp', '2'], "
+            "device='cpu'))")
+    procs = _launch(code)
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    assert _report(outs[0][0]) == want
+    assert outs[1][0] == ""
+
+
+def _serve_two_ranks(tiny_bundle):
+    """`serve --tp 2` on two CPU ranks; returns (procs, port) once the
+    leader answers /healthz and one /classify."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        http = s.getsockname()[1]
+    code = ("import sys; from gliclass.c_tpu_torch.cli import main; "
+            f"sys.exit(main(['serve', '--bundle', {tiny_bundle!r}, '--port', '{http}', *{FLAGS!r}, '--tp', '2'], "
+            "device='cpu'))")
+    procs = _launch(code)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and all(p.poll() is None for p in procs):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{http}/healthz", timeout=2) as r:
+                assert json.loads(r.read())["status"] == "ok"
+            break
+        except OSError:
+            time.sleep(0.2)
+    else:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"server never came up: {[p.communicate()[1][-2000:] for p in procs]}")
+    body = json.dumps({"texts": ["science fox runs"], "labels": ["science", "sports"],
+                       "classification_type": "single-label"}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{http}/classify", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert json.loads(r.read())["results"][0]["decisions"][0]["label"] in ("science", "sports")
+    return procs
+
+
+def test_serve_tp2_two_ranks_sigterm_exits_zero(tiny_bundle):
+    """SIGTERM to the leader of `serve --tp 2`: it stops serving, stops the
+    follower, and both ranks exit 0."""
+    procs = _serve_two_ranks(tiny_bundle)
+    try:
+        procs[0].send_signal(signal.SIGTERM)
+        outs = [p.communicate(timeout=60) for p in procs]
+        assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def test_serve_follower_exits_nonzero_when_leader_killed(tiny_bundle):
+    """A killed leader (SIGKILL: no stop header) makes the follower exit
+    non-zero as soon as gloo reports the closed connection, not hang."""
+    procs = _serve_two_ranks(tiny_bundle)
+    try:
+        procs[0].kill()
+        procs[0].communicate(timeout=30)
+        t0 = time.monotonic()
+        _, err = procs[1].communicate(timeout=60)
+        assert procs[1].returncode not in (0, None), err[-2000:]
+        assert time.monotonic() - t0 < 60
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
 
 def test_serve_wiring(tiny_bundle, monkeypatch):

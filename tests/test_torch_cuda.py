@@ -1579,3 +1579,67 @@ def test_causal_tc_kernel_at_a_ranks_heads(dev, S):
     want = CA.causal_flash_attention_plain(qg, k, v, mask, 1.0 / math.sqrt(128))
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# K1 and K5 at a query-row offset (sequence parallelism)
+# ---------------------------------------------------------------------------
+# (S, [(q_off, Sq), ...]): the blocks of sp = 2 and 4, blocks off the 64-row
+# tiles, one row at the end.
+_OFFSET_BLOCKS = [
+    (56, [(0, 28), (28, 28)]),
+    (128, [(0, 64), (64, 64), (32, 32), (96, 32)]),
+    (512, [(0, 256), (256, 256), (384, 128)]),
+    (200, [(50, 50), (150, 50), (199, 1)]),
+]
+
+
+@pytest.mark.parametrize("S,blocks", _OFFSET_BLOCKS, ids=lambda x: str(x))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_attention_kernel_query_row_offset(dev, S, blocks, dtype, tol):
+    """K1 (fp32) and K1' (bf16) on a block of query rows at q_off: the
+    block's rows of the launch over all S bit for bit, and the plain
+    version at q_off within the kernel's tolerance."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, S, dtype, S + 1)
+    scale = math.sqrt(3 * 64)
+    full = FA.flash_disentangled_attention(q, k, v, pk, pq, mask, scale)
+    for off, n in blocks:
+        FA.launches = FA.launches_flash_tc = 0
+        got = FA.flash_disentangled_attention(q[:, :, off:off + n], k, v, pk, pq, mask, scale, q_off=off)
+        assert (FA.launches, FA.launches_flash_tc) == (1, int(dtype == torch.bfloat16))
+        want = FA.flash_disentangled_attention_plain(q[:, :, off:off + n], k, v, pk, pq, mask, scale, off)
+        torch.cuda.synchronize()
+        assert got.shape == (4, 3, n, 64) and got.permute(0, 2, 1, 3).is_contiguous()
+        assert torch.equal(got, full[:, :, off:off + n])
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("S,blocks", _OFFSET_BLOCKS, ids=lambda x: str(x))
+@pytest.mark.parametrize("nkv,g,d,dtype,tol", [(2, 6, 128, torch.bfloat16, 2e-2), (1, 4, 64, torch.bfloat16, 2e-2),
+                                               (2, 6, 128, torch.float32, 1e-4), (2, 2, 8, torch.float32, 1e-4)])
+def test_causal_kernel_query_row_offset(dev, S, blocks, nkv, g, d, dtype, tol):
+    """K5' (bf16, d % 16 == 0) and K5 on a block of query rows at q_off (cut
+    at j <= i + q_off): the block's rows of the launch over all S bit for
+    bit, and the plain version at q_off within the kernel's tolerance."""
+    qg, k, v, mask = _causal_inputs(dev, 3, nkv, g, S, d, dtype, S + d)
+    scale = 1.0 / math.sqrt(d)
+    full = CA.causal_flash_attention(qg, k, v, mask, scale)
+    for off, n in blocks:
+        CA.launches = CA.launches_tc = 0
+        got = CA.causal_flash_attention(qg[:, :, :, off:off + n], k, v, mask, scale, q_off=off)
+        assert (CA.launches, CA.launches_tc) == (1, int(CA.kernel_variant(dtype, d) == CA.TENSOR_CORE))
+        want = CA.causal_flash_attention_plain(qg[:, :, :, off:off + n], k, v, mask, scale, off)
+        torch.cuda.synchronize()
+        assert got.shape == (3, nkv, g, n, d) and got.permute(0, 3, 1, 2, 4).is_contiguous()
+        assert torch.equal(got, full[:, :, :, off:off + n])
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_offset_kernels_check_the_rows(dev):
+    """A block of rows that runs past the keys is refused before a launch."""
+    q, k, v, pk, pq, mask = _attn_inputs(dev, 4, 3, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="outside the 64 keys"):
+        FA.flash_disentangled_attention(q[:, :, :40], k, v, pk, pq, mask, 8.0, q_off=32)
+    qg, k, v, mask = _causal_inputs(dev, 3, 2, 2, 64, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="outside the 64 keys"):
+        CA.causal_flash_attention(qg[:, :, :, :40], k, v, mask, 0.125, q_off=32)

@@ -107,6 +107,19 @@ def test_rope_tables_equal(S, d, theta):
         np.testing.assert_array_equal(got, want)
 
 
+def test_rope_tables_built_in_inference_mode_serve_autograd():
+    """The shared rotary tables first built under inference mode (a served
+    forward) are plain tensors, so a later forward under autograd (the
+    trainer's score path) can save them for its backward."""
+    tllama.rope_device.cache_clear()
+    with torch.inference_mode():
+        cos, sin = tllama.rope_device(12, 8, 10000.0, "cpu")
+    assert not cos.is_inference() and not sin.is_inference()
+    x = torch.randn(1, 2, 12, 8, requires_grad=True)
+    tllama.apply_rope(x, *tllama.rope_device(12, 8, 10000.0, "cpu")).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
 def test_apply_rope_matches_jax_and_promotes():
     """bf16 q rotated with f32 tables: f32 product (then the caller casts)."""
     rng = np.random.default_rng(2)
@@ -144,6 +157,32 @@ def test_causal_plain_matches_jax_kernel(B, nkv, g, S, d):
     got = CA.causal_flash_attention(*(torch.from_numpy(a) for a in (qg, k, v, mask)), scale)
     assert got.shape == (B, nkv, g, S, d)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S,rows", [(56, [(0, 28), (28, 28)]), (128, [(0, 32), (32, 32), (64, 32), (96, 32)]),
+                                    (12, [(3, 5), (11, 1)])])
+def test_causal_plain_query_row_offset_is_the_rows_of_the_full_call(S, rows):
+    """K5's plain version at q_off (a seq rank's block of query rows, cut at
+    j <= i + q_off) equals those rows of the call over all S, and those rows
+    of the JAX Pallas kernel (interpret mode) at 1e-5; in bf16 too. Equal up
+    to the CPU matmul's sum order, which follows the operands' shapes: fp32
+    1e-6, bf16 one ulp of the largest output (the kernels' rows are
+    bit-equal: the card tests)."""
+    B, nkv, g, d = 2, 2, 3, 8
+    qg, k, v, mask = _attn_inputs(S, B, nkv, g, S, d)
+    scale = 1.0 / math.sqrt(d)
+    t = torch.from_numpy
+    full = CA.causal_flash_attention(t(qg), t(k), t(v), t(mask), scale)
+    want = np.asarray(j_causal_flash(*(jnp.asarray(a) for a in (qg, k, v, mask)), scale))
+    for off, n in rows:
+        got = CA.causal_flash_attention(t(qg)[:, :, :, off:off + n], t(k), t(v), t(mask), scale, q_off=off)
+        assert got.shape == (B, nkv, g, n, d)
+        torch.testing.assert_close(got, full[:, :, :, off:off + n], atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(got.numpy(), want[:, :, :, off:off + n], atol=1e-5, rtol=1e-5)
+        bf = [x.to(torch.bfloat16) for x in (t(qg), t(k), t(v))]
+        wantb = CA.causal_flash_attention(*bf, t(mask), scale)[:, :, :, off:off + n].float()
+        gotb = CA.causal_flash_attention(bf[0][:, :, :, off:off + n], *bf[1:], t(mask), scale, off)
+        torch.testing.assert_close(gotb.float(), wantb, atol=2.0 ** -8 * wantb.abs().max().item(), rtol=0)
 
 
 @pytest.mark.parametrize("S", [12, 56])

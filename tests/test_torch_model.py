@@ -235,8 +235,9 @@ def test_engine_without_device_needs_cuda(np_params):
 def test_engine_refuses_multi_device_runtime(np_params):
     _, tc = tiny_cfgs()
     # Without a process group a multi-rank mesh is refused, naming the
-    # launcher's variables; sequence parallelism is not ported.
+    # launcher's variables: a tensor-parallel one and a sequence-parallel one
+    # alike (the sp axis counts in the mesh's size, dp x sp x tp).
     with pytest.raises(ValueError, match="needs 2 ranks, the world has 1; launch 2 processes with .*MASTER_ADDR"):
         InferenceEngine(tc, np_params[0], tcfg.RuntimeConfig(tp_size=2), device="cpu")
-    with pytest.raises(ValueError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="mesh 1x2x1 needs 2 ranks, the world has 1; launch 2 processes"):
         InferenceEngine(tc, np_params[0], tcfg.RuntimeConfig(sp_size=2), device="cpu")

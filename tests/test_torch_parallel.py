@@ -1,4 +1,5 @@
-"""The port's data and tensor parallelism against the JAX package's, on CPU.
+"""The port's data, sequence and tensor parallelism against the JAX
+package's, and serving over a mesh, on CPU.
 
 The sharding rules and local shards are checked in this process. The
 multi-rank paths run in two CPU gloo worlds, of 2 and of 4 ranks
@@ -14,7 +15,16 @@ virtual devices (``conftest.py``):
   * one SGD step of the sharded train step at (2,1), (1,2), (2,2) against
     JAX's ``make_sharded_train_step`` (loss 1e-5, grad norm and parameters
     1e-4), AdamW's loss falling over two steps, and a checkpoint saved at
-    tp = 2 restored into one process.
+    tp = 2 restored into one process;
+  * sequence parallelism at (dp, sp, tp) in {(1,2,1), (1,4,1), (1,2,2),
+    (2,2,1)}: both models, fp32 and weight-only INT8, against JAX's engine
+    at the same mesh at 1e-5; a bucket sp = 4 does not divide, equal to one
+    process; ``int8-dynamic`` at sp = 2 against JAX at 4.2e-2; the SGD step
+    at (1,2,1) and (1,2,2) against JAX's;
+  * lockstep serving at tp = 2 and dp = 2: rank 0 serves HTTP requests from
+    four client threads, rank 1 follows and returns 0 when the server
+    closes; the answers are a one-process server's at fp32 (1e-5, equal
+    decisions).
 """
 
 import dataclasses
@@ -38,6 +48,7 @@ from gliclass.c_tpu.models.gliclass import init_gliclass_params
 from gliclass.c_tpu.ops.quant import quantize_tree
 from gliclass.c_tpu.parallel import mesh as jmesh
 from gliclass.c_tpu.parallel.sharding import param_pspecs as j_param_pspecs
+from gliclass.c_tpu.prompting import pack_prompts
 from gliclass.c_tpu.tokenization import PromptTokenizer
 from gliclass.c_tpu.training import train as jtrain
 from gliclass.c_tpu_torch import config as tcfg
@@ -52,12 +63,18 @@ from gliclass.c_tpu_torch.training.checkpoint import restore_train_state
 
 import test_sharding
 import test_training
+import torch_parallel_worker
 from test_torch_heads import jittered
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2), (1, 4)]}
 TRAIN_MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
+# (dp, sp, tp) meshes of sequence parallelism, by world size.
+SP_MESHES = {2: [(1, 2, 1)], 4: [(1, 4, 1), (1, 2, 2), (2, 2, 1)]}
+SP_TRAIN_MESHES = {2: [(1, 2, 1)], 4: [(1, 2, 2)]}
+# (dp, tp) of the serve cases, in the world of 2.
+SERVE_MESHES = [(1, 2), (2, 1)]
 
 
 def cfg_dicts(jc):
@@ -78,14 +95,18 @@ def batch_arrays(b):
 class Models:
     """The configurations, parameters and batches the worlds and JAX share."""
 
-    def __init__(self, tok):
-        self.tok = tok
+    def __init__(self, tok, tok_path):
+        self.tok, self.tok_path = tok, tok_path
         self.cfg = {m: test_sharding.tiny_cfg(tok, m) for m in ("deberta-v2", "llama")}
         gqa = dataclasses.replace(self.cfg["llama"].backbone, num_key_value_heads=2)
         self.cfg["gqa"] = dataclasses.replace(self.cfg["llama"], backbone=gqa)
         self.params = {m: jittered(init_gliclass_params(jax.random.key(0), c)) for m, c in self.cfg.items()}
         self.qparams = {m: quantize_tree(p) for m, p in self.params.items()}
         self.batches = [test_sharding.make_batch(tok, 8), test_sharding.make_batch(tok, 5)]
+        # A length that sp = 4 does not divide (test_sharding's fallback test).
+        prompts = pack_prompts([f"odd length text {i}" for i in range(4)], [["a", "b"]], True, True)
+        self.odd_batch = tok.encode_batch(prompts, max_length=64, pad_to=27)
+        self.requests = serve_requests_bodies()
         self.tcfg = test_training.tiny_cfg()
         self.tparams = jittered(init_gliclass_params(jax.random.key(1), self.tcfg))
         self.tbatch = tuple(np.array(a) for a in test_training.make_batch(np.random.default_rng(2)))
@@ -107,6 +128,20 @@ class Models:
         add("deberta-v2-fused-(1, 2)", 2, (1, 2), "deberta-v2", "none", "float32", self.params["deberta-v2"],
             fuse_qkv=True)
         add("gqa-fp32-(1, 4)", 4, (1, 4), "gqa", "none", "float32", self.params["gqa"])
+        for world, meshes in SP_MESHES.items():
+            for mesh in meshes:
+                for model in ("deberta-v2", "llama"):
+                    add(f"{model}-fp32-sp{mesh}", world, mesh, model, "none", "float32", self.params[model])
+                    add(f"{model}-int8-sp{mesh}", world, mesh, model, "int8", "float32", self.qparams[model])
+        add("deberta-v2-dyn-sp(1, 2, 1)", 2, (1, 2, 1), "deberta-v2", "int8-dynamic", "bfloat16",
+            self.qparams["deberta-v2"])
+        cases.append(dict(kind="infer", name="deberta-v2-odd-sp(1, 4, 1)", world=4, mesh=(1, 4, 1),
+                          cfg=cfg_dicts(self.cfg["deberta-v2"]), params=self.params["deberta-v2"], quant="none",
+                          dtype="float32", max_labels=4, batches=[batch_arrays(self.odd_batch)]))
+        for mesh in SERVE_MESHES:
+            cases.append(dict(kind="serve", name=f"serve-{mesh}", world=2, mesh=mesh,
+                              cfg=cfg_dicts(self.cfg["deberta-v2"]), params=self.params["deberta-v2"],
+                              tokenizer=self.tok_path, requests=self.requests))
         for world, meshes in TRAIN_MESHES.items():
             for mesh in meshes:
                 for opt, lr, steps in (("sgd", 1e-2, 1), ("adamw", 1e-3, 2)):
@@ -114,6 +149,12 @@ class Models:
                                       cfg=cfg_dicts(self.tcfg), params=self.tparams, batch=self.tbatch, opt=opt,
                                       lr=lr, steps=steps, max_labels=4,
                                       ckpt=os.path.join(ckpt_dir, f"{opt}-{mesh[0]}x{mesh[1]}.pt")))
+        for world, meshes in SP_TRAIN_MESHES.items():
+            for mesh in meshes:
+                cases.append(dict(kind="train", name=f"train-sgd-sp{mesh}", world=world, mesh=mesh,
+                                  cfg=cfg_dicts(self.tcfg), params=self.tparams, batch=self.tbatch, opt="sgd",
+                                  lr=1e-2, steps=1, max_labels=4,
+                                  ckpt=os.path.join(ckpt_dir, "sgd-sp{}x{}x{}.pt".format(*mesh))))
         return cases
 
 
@@ -160,9 +201,26 @@ class Worlds:
         raise KeyError(name)
 
 
+def serve_requests_bodies():
+    """Two dozen /classify bodies: one to three texts each, three label
+    sets, single-label and multi-label at threshold 0 (every label's score
+    comes back)."""
+    rng = np.random.default_rng(3)
+    words = ["science", "fox", "runs", "market", "goal", "rain", "the", "quick", "vote", "storm"]
+    sets = [["science", "sports"], ["format", "question", "weather"], ["a", "b", "c", "d"]]
+    bodies = []
+    for i in range(24):
+        texts = [" ".join(rng.choice(words, size=int(rng.integers(3, 12)))) for _ in range(int(rng.integers(1, 4)))]
+        body = {"texts": texts, "labels": sets[i % 3]}
+        body.update({"classification_type": "single-label"} if i % 2 else
+                    {"classification_type": "multi-label", "threshold": 0.0})
+        bodies.append(body)
+    return bodies
+
+
 @pytest.fixture(scope="module")
 def models(tiny_tokenizer_file):
-    return Models(PromptTokenizer.from_file(tiny_tokenizer_file))
+    return Models(PromptTokenizer.from_file(tiny_tokenizer_file), tiny_tokenizer_file)
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +237,9 @@ def worlds(models, tmp_path_factory):
 
 
 def jax_probs(cfg, params, mesh, batch, quant="none", dtype="float32"):
-    rt = JRuntimeConfig(compute_dtype=dtype, quant_mode=quant, dp_size=mesh[0], tp_size=mesh[1])
+    """JAX's engine at ``mesh``, (dp, tp) or (dp, sp, tp)."""
+    dp, sp, tp = (mesh[0], 1, mesh[1]) if len(mesh) == 2 else mesh
+    rt = JRuntimeConfig(compute_dtype=dtype, quant_mode=quant, dp_size=dp, tp_size=tp, sp_size=sp)
     return JEngine(cfg, params, rt).run(batch, max_labels=4)
 
 
@@ -288,9 +348,16 @@ def test_initialize_from_env_without_variables(monkeypatch):
 
 
 def test_parallel_modules_import_no_jax():
+    """The parallel modules, and the paths sequence parallelism and lockstep
+    serving run through (the engine, scheduler, server, CLI, models and
+    attention kernels' wrappers), import neither JAX nor the JAX package."""
     code = ("import sys; import gliclass.c_tpu_torch.parallel.distributed, gliclass.c_tpu_torch.parallel.mesh, "
             "gliclass.c_tpu_torch.parallel.collectives, gliclass.c_tpu_torch.parallel.sharding, "
-            "gliclass.c_tpu_torch.training.train, gliclass.c_tpu_torch.training.checkpoint; "
+            "gliclass.c_tpu_torch.training.train, gliclass.c_tpu_torch.training.checkpoint, "
+            "gliclass.c_tpu_torch.engine, gliclass.c_tpu_torch.parallel.scheduler, gliclass.c_tpu_torch.serving, "
+            "gliclass.c_tpu_torch.cli, gliclass.c_tpu_torch.models.gliclass, gliclass.c_tpu_torch.models.deberta, "
+            "gliclass.c_tpu_torch.models.llama, gliclass.c_tpu_torch.ops.fused_attention, "
+            "gliclass.c_tpu_torch.ops.causal_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib') or "
             "(m.startswith('gliclass.c_tpu') and not m.startswith('gliclass.c_tpu_torch'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -348,7 +415,8 @@ def test_fused_qkv_and_gqa_match_jax(models, worlds):
 
 
 def jax_train(models, mesh, opt, steps):
-    jm = jmesh.make_mesh(*mesh)
+    dp, sp, tp = (mesh[0], 1, mesh[1]) if len(mesh) == 2 else mesh
+    jm = jmesh.make_mesh(dp, tp, sp)
     state = jtrain.init_sharded_train_state(models.tparams, opt, jm)
     step = jtrain.make_sharded_train_step(models.tcfg, opt, 4, jm)
     batch = jtrain.shard_batch(jm, *models.tbatch)
@@ -370,14 +438,18 @@ def test_sharded_sgd_step_matches_jax(models, worlds, mesh):
     """Loss to 1e-5, grad norm to 1e-4 and the gathered parameters (the
     checkpoint rank 0 wrote) to 1e-4 against JAX's sharded step; the same
     metrics on every rank."""
+    _check_sgd_step(models, worlds, mesh, f"train-sgd-{mesh}", f"sgd-{mesh[0]}x{mesh[1]}.pt")
+
+
+def _check_sgd_step(models, worlds, mesh, name, ckpt):
     jstate, (jm,) = jax_train(models, mesh, optax.sgd(1e-2), 1)
-    res = worlds.case(f"train-sgd-{mesh}")
+    res = worlds.case(name)
     for r in res:
         (m,) = r["metrics"]
         np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
         np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"], rtol=1e-4)
         np.testing.assert_allclose(m["accuracy"], jm["accuracy"], rtol=1e-6)
-    saved = torch.load(os.path.join(worlds.ckpt_dir, f"sgd-{mesh[0]}x{mesh[1]}.pt"), weights_only=True)
+    saved = torch.load(os.path.join(worlds.ckpt_dir, ckpt), weights_only=True)
     want = flat(jax.tree.map(np.asarray, jstate.params))
     assert saved["params"].keys() == want.keys()
     for k, w in want.items():
@@ -411,3 +483,84 @@ def test_checkpoint_saved_at_tp2_restores_into_one_process(models, worlds):
     _, jm = jax_train(models, (1, 2), optax.adamw(1e-3, weight_decay=1e-4), 3)
     _, m = ttrain.make_train_step(cfg, 4)(state, *models.tbatch)
     np.testing.assert_allclose(float(m["loss"]), jm[2]["loss"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism and lockstep serving
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("quant", ["fp32", "int8"])
+@pytest.mark.parametrize("model", ["deberta-v2", "llama"])
+@pytest.mark.parametrize("mesh", [m for ms in SP_MESHES.values() for m in ms], ids=str)
+def test_seq_parallel_probs_match_jax_engine_at_same_mesh(models, worlds, model, quant, mesh):
+    """The batches pad to S = 32, which every sp here divides: each seq
+    rank runs its tokens (the seq group's gathers were issued) and every
+    rank's probabilities are JAX's at the same mesh, to 1e-5."""
+    params = (models.params if quant == "fp32" else models.qparams)[model]
+    want = [jax_probs(models.cfg[model], params, mesh, b) for b in models.batches]
+    for r in worlds.case(f"{model}-{quant}-sp{mesh}"):
+        assert r["calls"] > 0
+        for got, w in zip(r["probs"], want):
+            assert got.shape == w.shape
+            np.testing.assert_allclose(got, w, atol=1e-5, rtol=1e-5)
+
+
+def test_seq_parallel_indivisible_bucket_runs_replicated(models, worlds):
+    """S = 27 at sp = 4 runs seq-replicated (no collective at all) and gives
+    one process's probabilities (the port's and JAX's)."""
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.tokenization import TokenizedBatch
+
+    cfg, params = models.cfg["deberta-v2"], models.params["deberta-v2"]
+    one = InferenceEngine(port_cfg(cfg), params, tcfg.RuntimeConfig(compute_dtype="float32"), device="cpu").run(
+        TokenizedBatch(*batch_arrays(models.odd_batch)), 4)
+    want = jax_probs(cfg, params, (1, 1), models.odd_batch)
+    for r in worlds.case("deberta-v2-odd-sp(1, 4, 1)"):
+        assert r["calls"] == 0
+        np.testing.assert_allclose(r["probs"][0], one, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(r["probs"][0], want, atol=1e-5, rtol=1e-5)
+
+
+def test_int8_dynamic_sp2_matches_jax(models, worlds):
+    """w8a8 at sp = 2 (each rank quantises its own tokens' rows: per token,
+    so one process's bits) against JAX at test_torch_model.py's bf16 bound."""
+    want = [jax_probs(models.cfg["deberta-v2"], models.qparams["deberta-v2"], (1, 2, 1), b, "int8-dynamic",
+                      "bfloat16") for b in models.batches]
+    for r in worlds.case("deberta-v2-dyn-sp(1, 2, 1)"):
+        for got, w in zip(r["probs"], want):
+            np.testing.assert_allclose(got, w, atol=4.2e-2)
+
+
+@pytest.mark.parametrize("mesh", [m for ms in SP_TRAIN_MESHES.values() for m in ms], ids=str)
+def test_seq_parallel_sgd_step_matches_jax(models, worlds, mesh):
+    """One SGD step with the tokens over the seq group (S = 16): loss,
+    grad norm and the gathered parameters against JAX's step at the same
+    mesh, at test_sharded_sgd_step_matches_jax's bounds."""
+    _check_sgd_step(models, worlds, mesh, f"train-sgd-sp{mesh}", "sgd-sp{}x{}x{}.pt".format(*mesh))
+
+
+@pytest.fixture(scope="module")
+def one_process_answers(models):
+    """The serve cases' requests answered by a one-process server."""
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer as TTokenizer
+
+    rt = tcfg.RuntimeConfig(compute_dtype="float32", max_length=64, batch_size=8)
+    engine = InferenceEngine(port_cfg(models.cfg["deberta-v2"]), models.params["deberta-v2"], rt, device="cpu")
+    return torch_parallel_worker.serve_requests(engine, TTokenizer.from_file(models.tok_path), rt, models.requests)
+
+
+@pytest.mark.parametrize("mesh", SERVE_MESHES, ids=str)
+def test_serve_over_two_ranks_answers_as_one_process(worlds, one_process_answers, mesh):
+    """serve at tp = 2 and at dp = 2: rank 0 answers two dozen requests from
+    four client threads as one process does (scores 1e-5, equal
+    decisions); rank 1's follower loop returns 0 when the server closes."""
+    leader, follower = worlds.case(f"serve-{mesh}")
+    assert follower == {"follow": 0}
+    assert len(leader["answers"]) == len(one_process_answers)
+    for got, want in zip(leader["answers"], one_process_answers):
+        assert len(got["results"]) == len(want["results"])
+        for g, w in zip(got["results"], want["results"]):
+            assert (g["text_index"], g["text"]) == (w["text_index"], w["text"])
+            assert [d["label"] for d in g["decisions"]] == [d["label"] for d in w["decisions"]]
+            np.testing.assert_allclose([d["score"] for d in g["decisions"]], [d["score"] for d in w["decisions"]],
+                                       atol=1e-5, rtol=1e-5)

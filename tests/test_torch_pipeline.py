@@ -168,7 +168,7 @@ class _FaultyEngine:
 
     def __init__(self, engine, fail_seq, fail_times):
         self._engine, self.fail_seq, self.remaining = engine, fail_seq, fail_times
-        self.cfg, self.runtime = engine.cfg, engine.runtime
+        self.cfg, self.runtime, self.mesh = engine.cfg, engine.runtime, engine.mesh
 
     def _maybe_fail(self, seq):
         if seq == self.fail_seq and self.remaining > 0:

@@ -4,14 +4,20 @@
 
 Reads the cases the test wrote (numpy parameters and batches, configs as
 dicts), runs those of its world size through the port on the CPU, each on
-its own mesh, and writes ``OUT_DIR/rank{r}.pkl``: {case name: result}.
-Imports torch and the port only; the test holds the results to JAX.
+its own mesh ((dp, tp) or (dp, sp, tp)), and writes ``OUT_DIR/rank{r}.pkl``:
+{case name: result}. A "serve" case serves HTTP requests from rank 0 over
+the mesh (the others follow) with :func:`serve_requests`, which the test
+also calls on one process. Imports torch and the port only; the test holds
+the results to JAX.
 """
 
 import functools
+import json
 import os
 import pickle
 import sys
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -30,11 +36,50 @@ def _infer(case, mesh):
     from gliclass.c_tpu_torch.engine import InferenceEngine
     from gliclass.c_tpu_torch.tokenization import TokenizedBatch
 
-    rt = RuntimeConfig(compute_dtype=case["dtype"], quant_mode=case["quant"], dp_size=mesh.dp, tp_size=mesh.tp,
-                       fuse_qkv=case.get("fuse_qkv", False))
+    from gliclass.c_tpu_torch.parallel import collectives
+
+    rt = RuntimeConfig(compute_dtype=case["dtype"], quant_mode=case["quant"], dp_size=mesh.dp, sp_size=mesh.sp,
+                       tp_size=mesh.tp, fuse_qkv=case.get("fuse_qkv", False))
     engine = InferenceEngine(_cfg(case["cfg"]), case["params"], rt, device="cpu", mesh=mesh)
+    calls = collectives.calls
     out = [engine.run(TokenizedBatch(*b), case["max_labels"]) for b in case["batches"]]
-    return {"probs": out, "plan": sorted(engine.plan.pairs)}
+    return {"probs": out, "plan": sorted(engine.plan.pairs), "calls": collectives.calls - calls}
+
+
+def _post(port, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/classify", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def serve_requests(engine, tokenizer, runtime, requests, clients=4):
+    """Serve ``requests`` (POST /classify bodies) from ``clients`` threads
+    through a GLiClassServer over ``engine`` on an ephemeral port; close it
+    (stopping a mesh's followers) and return the answers in request order."""
+    from gliclass.c_tpu_torch.serving import GLiClassServer
+
+    engine.lead()
+    server = GLiClassServer(engine, tokenizer, runtime, port=0, max_wait_ms=2.0)
+    server.start()
+    try:
+        with ThreadPoolExecutor(clients) as ex:
+            return list(ex.map(functools.partial(_post, server.port), requests))
+    finally:
+        server.close()
+
+
+def _serve(case, mesh):
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    rt = RuntimeConfig(compute_dtype="float32", max_length=64, batch_size=8, dp_size=mesh.dp, sp_size=mesh.sp,
+                       tp_size=mesh.tp)
+    engine = InferenceEngine(_cfg(case["cfg"]), case["params"], rt, device="cpu", mesh=mesh)
+    if dist.get_rank() != 0:
+        return {"follow": engine.follow()}
+    return {"answers": serve_requests(engine, PromptTokenizer.from_file(case["tokenizer"]), rt, case["requests"])}
 
 
 def _train(case, mesh):
@@ -69,8 +114,10 @@ def main(cases_path: str, out_dir: str) -> int:
     for case in cases:
         if case["world"] != world:
             continue
-        mesh = make_mesh(*case["mesh"], device="cpu")
-        out[case["name"]] = (_infer if case["kind"] == "infer" else _train)(case, mesh)
+        m = case["mesh"]
+        dp, sp, tp = (m[0], 1, m[1]) if len(m) == 2 else m
+        mesh = make_mesh(dp, tp, sp, device="cpu")
+        out[case["name"]] = {"infer": _infer, "train": _train, "serve": _serve}[case["kind"]](case, mesh)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()

@@ -132,7 +132,21 @@ Phases, in order, each with its wall time; any failure exits non-zero:
     (g)-(i). Then K2' split at s_h alone at tp = 2 widths (h_q equal
     to the one-rank K2''s, outputs within K2's tolerance), and a one-rank
     NCCL world (one all-reduce, one forward).
-15. One JSON line of kernel records (all ten kernels, bounds from
+15. Bundles with a real tokenizer (the port's reader of tokenizer.json;
+    the fixtures of tests/data/tokenizers/): (a) each fixture's ids equal
+    to expected_ids.json; (b) gliclass-base at full width and depth from
+    init_gliclass_params in a bundle with fixture (a)'s tokenizer.json
+    (goldens: the port's fp32 CPU logits), and as subprocesses from the
+    repository root `python -m gliclass.c_tpu_torch.cli run job.json
+    --bundle B --int8-dynamic` (128 short texts and 8 of the 512 bucket;
+    decisions equal to pipeline.from_bundle's, which launches K1' and K2'),
+    `selftest --bundle B --dtype float32` and `serve` (requests within 0.15
+    of classify_job; SIGTERM, exit 0); (c) fixtures (b), (d) and (c) in
+    bundles at gliclass-base, qwen-1.5B and Llama-1.3B width, 2 layers
+    each, through pipeline.from_bundle: fp32 probabilities card against CPU
+    within 1e-4; (d) the reader's prompts/s and tokens/s on the host, and
+    the tokenize share of the `cli run` pass.
+16. One JSON line of kernel records (all ten kernels, bounds from
     utils.perf.kernel_bound_ms), the card line, and the final status line.
 
 Needs torch, numpy and the CUDA toolkit (nvcc); no JAX, no network.
@@ -2190,6 +2204,25 @@ def model_production(cfg, tok, rng: np.random.Generator, dev, forward_ms: dict) 
         f"{torch.cuda.get_device_name(0)}")
 
 
+def fp32_goldens(cfg, params, tok, texts: list) -> list:
+    """Goldens of ``texts`` with the 8 shared labels: the port's fp32 logits
+    on the host CPU, as the converter records them."""
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.engine import InferenceEngine
+    from gliclass.c_tpu_torch.models.gliclass import gliclass_forward
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+
+    rt32 = RuntimeConfig(batch_size=8, max_length=512, compute_dtype="float32", seq_buckets=SEQ_LADDER,
+                         label_buckets=(8,))
+    batch = tok.encode_batch(pack_prompts(texts, [JOB_LABELS], True, cfg.prompt_first), max_length=512)
+    cpu32 = InferenceEngine(cfg, params, rt32, device="cpu")
+    with torch.inference_mode():
+        logits = gliclass_forward(cpu32.params, torch.from_numpy(batch.input_ids), torch.from_numpy(batch.attention_mask),
+                                  cfg, len(JOB_LABELS), torch.float32)
+    return [{"texts": texts, "labels": [JOB_LABELS], "same_labels": True, "prompt_first": cfg.prompt_first,
+             "max_length": 512, "logits": np.round(logits.numpy().astype(np.float64), 5).tolist()}]
+
+
 def bundle_round_trip(cfg, tok, rng: np.random.Generator, dev) -> None:
     """(a) gliclass-base from ``init_gliclass_params`` (a generator drawn
     from ``rng``), INT8 by ``quantize_tree``, written by ``save_bundle``
@@ -2204,10 +2237,9 @@ def bundle_round_trip(cfg, tok, rng: np.random.Generator, dev) -> None:
     from gliclass.c_tpu_torch.convert import bundle as B
     from gliclass.c_tpu_torch.data import parse_job
     from gliclass.c_tpu_torch.engine import InferenceEngine
-    from gliclass.c_tpu_torch.models.gliclass import gliclass_forward, init_gliclass_params
+    from gliclass.c_tpu_torch.models.gliclass import init_gliclass_params
     from gliclass.c_tpu_torch.ops.quant import quantize_tree
     from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
-    from gliclass.c_tpu_torch.prompting import pack_prompts
     from gliclass.c_tpu_torch.utils.eval import golden_logit_check
 
     t0 = time.perf_counter()
@@ -2221,14 +2253,8 @@ def bundle_round_trip(cfg, tok, rng: np.random.Generator, dev) -> None:
     texts = job["texts"][:4]
     rt32 = RuntimeConfig(batch_size=8, max_length=512, compute_dtype="float32", seq_buckets=SEQ_LADDER,
                          label_buckets=(8,))
-    batch = tok.encode_batch(pack_prompts(texts, [JOB_LABELS], True, cfg.prompt_first), max_length=512)
-    cpu32 = InferenceEngine(cfg, params, rt32, device="cpu")
-    with torch.inference_mode():
-        logits = gliclass_forward(cpu32.params, torch.from_numpy(batch.input_ids), torch.from_numpy(batch.attention_mask),
-                                  cfg, len(JOB_LABELS), torch.float32)
-    del cpu32
-    goldens = [{"texts": texts, "labels": [JOB_LABELS], "same_labels": True, "prompt_first": cfg.prompt_first,
-                "max_length": 512, "logits": np.round(logits.numpy().astype(np.float64), 5).tolist()}]
+    goldens = fp32_goldens(cfg, params, tok, texts)
+    logits = np.asarray(goldens[0]["logits"])
     log(f"   goldens: the port's fp32 CPU logits of {len(texts)} texts, in [{logits.min():.4f}, {logits.max():.4f}]")
 
     with tempfile.TemporaryDirectory(prefix="gliclass_bundle_") as path:
@@ -2945,6 +2971,344 @@ def nccl_one_rank(cfg, qparams, tok, batch, dev) -> None:
                 os.environ[k] = v
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: bundles with a real tokenizer
+# ---------------------------------------------------------------------------
+TOKENIZER_FIXTURES = "tests/data/tokenizers"
+# English prose for the phase's texts, so that a trained vocabulary cuts them
+# as it cuts real text (the word-level stand-in's w123 words would not do).
+PROSE = """the market rallied on tuesday as investors weighed new data on inflation while the central bank
+held interest rates steady and officials said growth would slow next year but unemployment stayed low a
+local team won the championship after a dramatic final match that went to extra time and fans celebrated
+in the streets researchers announced a vaccine trial for a new virus strain and doctors urged patients to
+follow public health advice the film festival opened with a documentary about climate change and several
+actors spoke about the role of art in politics voters in three states will decide on ballot measures
+covering taxes schools and energy policy engineers released an open source framework that runs machine
+learning models faster on accelerators startups raised record funding despite concerns about a slowing
+economy travel bookings rose sharply ahead of the holidays as airlines added routes to popular islands
+scientists measured ocean temperatures across the pacific and found that coral reefs were recovering in
+some regions while others declined the senate debated a bill on privacy and technology companies lobbied
+against new rules for data collection""".split()
+
+
+def prose(rng: np.random.Generator, n_words: int) -> str:
+    return " ".join(rng.choice(PROSE, size=n_words))
+
+
+def prose_job(rng: np.random.Generator, tok, n_short: int, n_long: int) -> dict:
+    """``n_short`` texts of 20-60 words and ``n_long`` whose packed prompts
+    (8 labels, prompt first) take 400-500 tokens of ``tok``: the 512 bucket."""
+    from gliclass.c_tpu_torch.prompting import pack_prompt
+
+    texts = [prose(rng, int(rng.integers(20, 61))) for _ in range(n_short)]
+    for _ in range(n_long):
+        text = prose(rng, 300)
+        while True:
+            n = len(tok._tok.encode(pack_prompt(text, JOB_LABELS, True)).ids)
+            if n >= 400:
+                break
+            text += " " + prose(rng, 10)
+        while len(tok._tok.encode(pack_prompt(text, JOB_LABELS, True)).ids) > 500:
+            text = text.rsplit(" ", 10)[0]
+        texts.append(text)
+    return {"texts": texts, "labels": [JOB_LABELS], "same_labels": True, "classification_type": "multi-label"}
+
+
+def fixture_ids_check() -> None:
+    """(a) Each fixture's ids from the port's reader against the ids
+    ``tokenizers`` gave when the fixtures were made, element for element."""
+    from gliclass.c_tpu_torch.tokenizer import Tokenizer
+
+    with open(f"{TOKENIZER_FIXTURES}/expected_ids.json", encoding="utf-8") as f:
+        expected = json.load(f)
+    texts = expected["texts"]
+    for name, want in expected["ids"].items():
+        t0 = time.perf_counter()
+        tok = Tokenizer.from_file(f"{TOKENIZER_FIXTURES}/{name}")
+        load = time.perf_counter() - t0
+        for mode, add in (("with", True), ("without", False)):
+            got = [e.ids for e in tok.encode_batch(texts, add_special_tokens=add)]
+            bad = [i for i, (g, w) in enumerate(zip(got, want[mode])) if g != w]
+            if bad or len(got) != len(want[mode]):
+                i = bad[0] if bad else len(got)
+                fail(f"tokenizer {name}: ids {mode} special tokens differ from tokenizers' on {len(bad)} of "
+                     f"{len(texts)} texts, first {texts[i]!r}: {got[i][:24]} against {want[mode][i][:24]}")
+        log(f"(a) {name}: ids of {len(texts)} texts, with and without special tokens, equal to "
+            f"tokenizers {expected['tokenizers']}'s ({sum(map(len, want['with']))} ids); loaded in {load:.2f} s")
+
+
+def _bundle_with_tokenizer(path: str, cfg, tok_file: str, seed: int, quantize: bool, goldens=None):
+    """A bundle of ``cfg`` from ``init_gliclass_params`` (seeded), its
+    tokenizer.json the fixture's ``to_str`` (as the converter writes it)."""
+    from gliclass.c_tpu_torch.convert import bundle as B
+    from gliclass.c_tpu_torch.models.gliclass import init_gliclass_params
+    from gliclass.c_tpu_torch.ops.quant import quantize_tree
+    from gliclass.c_tpu_torch.tokenizer import Tokenizer
+
+    params = _to_numpy(init_gliclass_params(torch.Generator().manual_seed(seed), cfg))
+    if callable(goldens):
+        goldens = goldens(params)
+    B.save_bundle(path, cfg, params, tokenizer_json=Tokenizer.from_file(tok_file).to_str(), goldens=goldens,
+                  int8_params=quantize_tree(params) if quantize else None)
+    return params
+
+
+def _subprocess_env() -> dict:
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def cli_paths(cfg, tok_file: str, rng: np.random.Generator, dev, seed: int, cli: list, tmp: str) -> dict:
+    """(b) gliclass-base (``cfg``) in a bundle with fixture (a)'s
+    tokenizer.json; ``cli run``, ``selftest --dtype float32`` and ``serve``
+    as subprocesses (``cli``: the command that starts the CLI). Returns the
+    job and the ``run`` pass's stage times."""
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    from gliclass.c_tpu_torch.config import RuntimeConfig
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    tok = PromptTokenizer.from_file(tok_file)
+    job = prose_job(rng, tok, 128, 8)
+    golden_texts = [prose(rng, 30) for _ in range(3)] + ["Ｆｕｌｌ－ｗｉｄｔｈ café ﬁne 日本語 👍🏽 don't"]
+
+    bundle = os.path.join(tmp, "base")
+    t0 = time.perf_counter()
+    _bundle_with_tokenizer(bundle, cfg, tok_file, seed, True,
+                           lambda params: fp32_goldens(cfg, params, tok, golden_texts))
+    log(f"(b) gliclass-base bundle with {os.path.basename(tok_file)} (vocab {cfg.backbone.vocab_size}, "
+        f"{cfg.backbone.num_hidden_layers} layers; goldens: the port's fp32 CPU logits of {len(golden_texts)} "
+        f"texts) written in {time.perf_counter() - t0:.1f} s")
+    job_path, out_path = os.path.join(tmp, "job.json"), os.path.join(tmp, "out.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    flags = ["--bundle", bundle, "--int8-dynamic", "--max-length", "512"]
+    env = _subprocess_env()
+
+    # cli run, and the same job through pipeline.from_bundle in this process.
+    t0 = time.perf_counter()
+    run = subprocess.run(cli + ["run", job_path, *flags, "--batch-size", "128", "--json-out", out_path, "--verbose"],
+                         env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"cli run exited {run.returncode}: {run.stderr[-3000:]}")
+    stages = json.loads(next(l for l in run.stderr.splitlines() if l.startswith("Stages: "))[len("Stages: "):])
+    exec_line = next(l for l in run.stdout.splitlines() if l.startswith("Execution time"))
+    with open(out_path) as f:
+        cli_out = json.load(f)
+    rt = RuntimeConfig(batch_size=128, max_length=512, compute_dtype="bfloat16", quant_mode="int8-dynamic",
+                       attn_route=os.environ.get("GLICLASS_TPU_ATTN_ROUTE", "auto"))
+    pipe = ZeroShotClassificationPipeline.from_bundle(bundle, rt, device=dev)
+    reset_counts()
+    out = pipe.classify_job(parse_job(job))
+    counts = read_counts()
+    decisions = lambda res: [[d["label"] for d in r["decisions"]] for r in res]
+    if out.failures or decisions(cli_out) != decisions(out.to_json()):
+        fail(f"cli run: decisions differ from pipeline.from_bundle's ({out.failures})")
+    if counts["flash_disentangled_attention_tc"] <= 0 or counts["fused_ffn_w8a8_tc"] <= 0:
+        fail(f"pipeline.from_bundle: K1'/K2' not launched ({json.dumps(counts)})")
+    share = stages["h_tokenize_s"] / stages["total_s"]
+    log(f"   cli run ({len(job['texts'])} texts, int8-dynamic): exit 0 in {wall:.1f} s; {exec_line}; decisions "
+        f"equal to pipeline.from_bundle's; stages {json.dumps(stages)}; tokenize {100 * share:.1f}% of the pass")
+    warm = []
+    for _ in range(3):  # warm passes: no first-use costs in the pass
+        t0 = time.perf_counter()
+        res = pipe.classify_job(parse_job(job))
+        sync()
+        warm.append((time.perf_counter() - t0, res.timings))
+    wall_warm, stages_warm = sorted(warm, key=lambda w: w[0])[1]
+    log(f"   pipeline.from_bundle, same job: K1' {counts['flash_disentangled_attention_tc']}, "
+        f"K2' {counts['fused_ffn_w8a8_tc']}, K8' {counts['row_disentangled_attention_tc']} launches; "
+        f"warm pass (median of 3) {wall_warm:.4f} s, stages {json.dumps(stages_warm)}")
+
+    t0 = time.perf_counter()
+    st = subprocess.run(cli + ["selftest", "--bundle", bundle, "--dtype", "float32"], env=env,
+                        capture_output=True, text=True, timeout=600)
+    if st.returncode != 0:
+        fail(f"cli selftest --dtype float32 exited {st.returncode}: {st.stdout[-2000:]} {st.stderr[-2000:]}")
+    log(f"   cli selftest --dtype float32: exit 0 in {time.perf_counter() - t0:.1f} s; "
+        f"{st.stdout.strip().splitlines()[-1]}")
+
+    port = free_port()
+    t0 = time.perf_counter()
+    srv = subprocess.Popen(cli + ["serve", *flags, "--batch-size", "64", "--port", str(port)], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    ready = threading.Event()
+
+    def reader():
+        for line in srv.stdout:
+            lines.append(line)
+            if line.startswith("serving "):
+                ready.set()
+
+    threading.Thread(target=reader, daemon=True).start()
+    try:
+        if not ready.wait(timeout=300):
+            fail(f"cli serve did not start within 300 s: {''.join(lines)[-3000:]}")
+        started = time.perf_counter() - t0
+        texts = [job["texts"][i] for i in (0, 1, 2, 3, 4, 128)] + golden_texts
+        bodies = [{"texts": texts[i:i + 2], "labels": JOB_LABELS, "threshold": 0.0} for i in range(0, len(texts), 2)]
+        answers = []
+        t1 = time.perf_counter()
+        for body in bodies:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/classify", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answers.append(json.loads(resp.read()))
+        served = time.perf_counter() - t1
+    finally:
+        srv.send_signal(signal.SIGTERM)
+        try:
+            rc = srv.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            rc = srv.wait()
+    if rc != 0:
+        fail(f"cli serve exited {rc} on SIGTERM: {''.join(lines)[-3000:]}")
+    ref = pipe.classify_job(parse_job({"texts": texts, "labels": [JOB_LABELS], "same_labels": True,
+                                       "classification_type": "multi-label"}))
+    worst, i = 0.0, 0
+    for body, ans in zip(bodies, answers):
+        if [r["text"] for r in ans["results"]] != body["texts"]:
+            fail("cli serve: a request was answered with other texts")
+        for r in ans["results"]:
+            scores = {d["label"]: d["score"] for d in r["decisions"]}
+            if sorted(scores) != sorted(JOB_LABELS):
+                fail(f"cli serve: decisions for {sorted(scores)}")
+            worst = max(worst, max(abs(scores[l] - float(ref.probs[i, k])) for k, l in enumerate(JOB_LABELS)))
+            i += 1
+    log(f"   cli serve: ready in {started:.1f} s; {len(bodies)} requests ({len(texts)} texts) answered in "
+        f"{served:.2f} s, scores vs classify_job max |dprob| {worst:.3e} (tol 0.15); SIGTERM, exit 0")
+    if worst > 0.15:
+        fail(f"cli serve: scores differ from classify_job by {worst}")
+    del pipe
+    gc.collect()
+    return {"job": job, "stages": stages, "stages_warm": stages_warm}
+
+
+def reduced_depth_bundles(configs: list, rng: np.random.Generator, dev, seed: int, tmp: str) -> None:
+    """(c) ``configs``: (label, backbone, fixture, prompt_first). A bundle of
+    each (fp32 weights), ``pipeline.from_bundle`` on the card and on the
+    host CPU, one classify_job in fp32: probabilities within 1e-4."""
+    import os
+
+    from gliclass.c_tpu_torch.config import GLiClassConfig, RuntimeConfig
+    from gliclass.c_tpu_torch.data import parse_job
+    from gliclass.c_tpu_torch.pipeline import ZeroShotClassificationPipeline
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    rt = RuntimeConfig(batch_size=8, max_length=512, compute_dtype="float32", seq_buckets=SEQ_LADDER,
+                       label_buckets=(8,))
+    for i, (label, bb, fixture, prompt_first) in enumerate(configs):
+        tok_file = f"{TOKENIZER_FIXTURES}/{fixture}"
+        tok = PromptTokenizer.from_file(tok_file)
+        cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
+                             text_token_index=tok.sep_token_id, prompt_first=prompt_first, backbone=bb)
+        path = os.path.join(tmp, f"reduced{i}")
+        t0 = time.perf_counter()
+        _bundle_with_tokenizer(path, cfg, tok_file, seed + 1 + i, False)
+        job = prose_job(rng, tok, 6, 2)
+        job["texts"] += ["Ｆｕｌｌ－ｗｉｄｔｈ café ﬁne", "日本語のテキスト分類 👍🏽 🇺🇦", "  tabs\tand\r\nnew lines  "]
+        card = ZeroShotClassificationPipeline.from_bundle(path, rt, device=dev).classify_job(parse_job(job))
+        cpu = ZeroShotClassificationPipeline.from_bundle(path, rt, device="cpu").classify_job(parse_job(job))
+        diff = float(np.abs(card.probs - cpu.probs).max())
+        if card.failures or cpu.failures or not np.isfinite(card.probs).all():
+            fail(f"{label}: failures {card.failures} {cpu.failures} or non-finite probabilities")
+        log(f"(c) {label} from a bundle with {fixture}: {len(job['texts'])} texts, fp32 card vs host CPU max "
+            f"|dprob| {diff:.3e} (tol 1e-4), probabilities in [{cpu.probs.min():.3f}, {cpu.probs.max():.3f}] "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not diff <= 1e-4:
+            fail(f"{label}: fp32 probabilities of the card and the CPU differ by {diff}")
+        gc.collect()
+
+
+def tokenizer_rates(job: dict, stages: dict, stages_warm: dict, fixtures: list,
+                    rng: np.random.Generator) -> None:
+    """(d) The reader's host rate: prompts/s and tokens/s of
+    ``PromptTokenizer.encode_batch`` over the packed prompts and of
+    ``AffixEncoder.encode_batch`` over the texts, a fresh tokenizer's first
+    pass and the median of 3 more, on (b)'s job (prose: a few hundred words,
+    so the per-word cache soon holds them all) and on as many texts of words
+    drawn at random from the letters (each word new: no cache hit); the
+    tokenize share of the ``cli run`` pass and of a warm pass of the same
+    job in this process."""
+    from gliclass.c_tpu_torch.prompting import pack_prompts
+    from gliclass.c_tpu_torch.tokenization import AffixEncoder, PromptTokenizer
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    fresh = [" ".join("".join(rng.choice(letters, size=int(rng.integers(3, 11))))
+                      for _ in range(len(t.split()))) for t in job["texts"]]
+    log(f"(d) the reader's host rate, {len(job['texts'])} texts, 8 labels, max_length 512 "
+        f"({smi_line()}; host clock, one thread)")
+    for words, texts in (("prose of (b)'s job", job["texts"]), ("new random words", fresh)):
+        prompts = pack_prompts(texts, [JOB_LABELS], True, True)
+        for fixture in fixtures:
+            for how in ("encode_batch", "AffixEncoder.encode_batch"):
+                walls, n_tok = [], 0
+                tok = PromptTokenizer.from_file(f"{TOKENIZER_FIXTURES}/{fixture}")
+                for _ in range(4):
+                    t0 = time.perf_counter()
+                    if how == "encode_batch":
+                        b = tok.encode_batch(prompts, 512)
+                    else:
+                        enc = AffixEncoder.for_labels(tok, JOB_LABELS, True, 512, sample_text=texts[0])
+                        if not enc.exact:
+                            fail(f"{fixture}: AffixEncoder not exact ({enc._why})")
+                        b = enc.encode_batch(texts, 512)
+                    walls.append(time.perf_counter() - t0)
+                    n_tok = int(b.lengths.sum())
+                warm = statistics.median(walls[1:])
+                log(f"   {words}, {fixture} {how}: first pass {len(texts) / walls[0]:.1f} prompts/s, "
+                    f"{n_tok / walls[0]:.0f} tokens/s; then (median of 3) {len(texts) / warm:.1f} prompts/s, "
+                    f"{n_tok / warm:.0f} tokens/s ({n_tok} tokens)")
+    for label, st in (("cli run pass (the process's first)", stages), ("warm pass in process", stages_warm)):
+        log(f"   {label}: the pass waited on the tokenizer (h_tokenize) {st['h_tokenize_s']:.4f} s of "
+            f"{st['total_s']:.4f} s = {100 * st['h_tokenize_s'] / st['total_s']:.1f}% (StageTimer)")
+
+
+def real_tokenizer(rng: np.random.Generator, dev, seed: int, cli: list | None = None,
+                   base_bb=None, reduced: list | None = None) -> None:
+    """Phase 15: (a) the fixtures' ids; (b) gliclass-base at full width and
+    depth in a bundle with fixture (a), through ``cli run``, ``selftest``
+    and ``serve``; (c) fixtures (b), (d) and (c) on DeBERTa, qwen2 and
+    Llama bundles at full width and 2 layers, card against CPU in fp32; (d)
+    the reader's host rate. ``cli``, ``base_bb`` and ``reduced`` replace the
+    CLI command and the configurations (a rehearsal on the CPU)."""
+    import tempfile
+
+    from gliclass.c_tpu_torch.config import GLiClassConfig, deberta_v3_config, llama_config, qwen2_config
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+
+    fixture_ids_check()
+    cli = cli or [sys.executable, "-m", "gliclass.c_tpu_torch.cli"]
+    bb = base_bb or deberta_v3_config("base")
+    tok_file = f"{TOKENIZER_FIXTURES}/a_bytelevel_bpe.json"
+    tok = PromptTokenizer.from_file(tok_file)
+    cfg = GLiClassConfig(hidden_size=bb.hidden_size, class_token_index=tok.label_token_id,
+                         text_token_index=tok.sep_token_id, prompt_first=True, backbone=bb)
+    with tempfile.TemporaryDirectory(prefix="gliclass_tokenizer_") as tmp:
+        res = cli_paths(cfg, tok_file, rng, dev, seed, cli, tmp)
+        if reduced is None:
+            two = lambda c: dataclasses.replace(c, num_hidden_layers=2)
+            reduced = [("gliclass-base width, 2 of 12 layers", two(deberta_v3_config("base")),
+                        "b_deberta_unigram.json", True),
+                       ("qwen-1.5B width, 2 of 28 layers", two(qwen2_config("1.5b")), "d_qwen2_bytelevel_bpe.json",
+                        False),
+                       ("llama-1.3B width, 2 of 24 layers", two(llama_config("1.3b")),
+                        "c_llama_bpe_normalizer.json", False)]
+        reduced_depth_bundles(reduced, rng, dev, seed, tmp)
+    tokenizer_rates(res["job"], res["stages"], res["stages_warm"], ["a_bytelevel_bpe.json", "b_deberta_unigram.json"],
+                    rng)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3137,6 +3501,11 @@ def main() -> int:
     with phase("phase 14: two ranks on one card over gloo: data, tensor and sequence parallelism, lockstep serving"):
         two_ranks(*base, np.random.default_rng([args.seed, 14]), dev, args.seed)
     del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with phase("phase 15: bundles with a real tokenizer"):
+        real_tokenizer(np.random.default_rng([args.seed, 15]), dev, args.seed)
 
     sources = {
         "flash_disentangled_attention": ("gliclass/c_tpu_torch/csrc/flash_disentangled_attention_tc.cu",

@@ -1,8 +1,10 @@
 """Tokenization of packed prompts into fixed-shape device-ready batches.
 
 Replaces reference src/tokenizer.c (C shim over the Rust ``tokenizers`` crate via
-tokenizers-cpp) with the HF ``tokenizers`` Python binding — the same Rust core;
-the C++ shim existed only because the reference host was C.
+tokenizers-cpp). The JAX package wraps the ``tokenizers`` Python binding; the
+port reads ``tokenizer.json`` itself (:mod:`.tokenizer`, plain Python), so
+a bundle loads on a machine without ``tokenizers``, and every device runs
+the same reader.
 
 Contract parity (reference src/tokenizer.c:19-91):
   * batch encode with ``add_special_tokens=True`` (reference src/tokenizer.c:32-33)
@@ -31,6 +33,7 @@ from typing import Sequence
 import numpy as np
 
 from .prompting import LABEL_TAG, SEP_TAG
+from .tokenizer import Tokenizer
 
 # Below this many rows the python fill loop wins (the flat-list build
 # dominates the native call); above it the threaded native fill takes over.
@@ -58,7 +61,10 @@ class TokenizedBatch:
 
 
 class PromptTokenizer:
-    """Wrapper over a HF ``tokenizers.Tokenizer`` (tokenizer.json)."""
+    """Wrapper over a tokenizer with the ``tokenizers.Tokenizer`` surface:
+    the port's :class:`.tokenizer.Tokenizer` from :meth:`from_file`, or any
+    object with ``encode``/``encode_batch`` (``.ids``), ``token_to_id`` and
+    ``padding`` (the tests hand it ``tokenizers.Tokenizer`` objects)."""
 
     def __init__(self, tokenizer, pad_token_id: int | None = None):
         self._tok = tokenizer
@@ -72,8 +78,7 @@ class PromptTokenizer:
 
     @classmethod
     def from_file(cls, path: str, pad_token_id: int | None = None) -> "PromptTokenizer":
-        from tokenizers import Tokenizer
-
+        """The port's reader of ``tokenizer.json``, on every device."""
         return cls(Tokenizer.from_file(path), pad_token_id=pad_token_id)
 
     def encode_batch(
@@ -136,8 +141,10 @@ class PromptTokenizer:
         """Chunked parallel encode for large jobs (replaces the OpenMP fan-out of
         reference src/parallel_processor.c:25-50 on the host side).
 
-        The Rust tokenizer core releases the GIL, so a thread pool gives real
-        host parallelism without pickling overhead.
+        The pool was chosen for the Rust tokenizer core, which releases the
+        GIL. The port's reader is Python and holds it, so the threads now
+        take turns and gain nothing over one; the chunking and the result
+        are unchanged.
         """
         if len(prompts) <= chunk_size:
             return self.encode_batch(prompts, max_length, pad_to)

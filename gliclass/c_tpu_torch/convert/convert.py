@@ -16,6 +16,7 @@ import os
 import sys
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from ..config import GLiClassConfig
@@ -163,6 +164,48 @@ def load_checkpoint_state_dict(model, sd: Mapping) -> None:
             + f"  checkpoint keys look like: {sorted(sd)[:4]}"
         )
     model.load_state_dict({k: v for k, v in sd.items() if k in model_sd}, strict=False)
+
+
+def forward_golden_logits(
+    cfg: GLiClassConfig,
+    params: Params,
+    tokenizer,
+    texts: Sequence[str],
+    labels: Sequence[Sequence[str]],
+    same_labels: bool,
+    prompt_first: bool | None = None,
+    max_length: int = 1024,
+    device="cpu",
+) -> dict[str, Any]:
+    """The golden-logit record of :func:`.torch_ref.golden_logits` from the
+    port's own fp32 forward (``params``: numpy or CPU tensors), for a bundle
+    made without ``transformers``: the logits of the packed prompts at
+    ``max_length``, rounded to 5 decimals. ``prompt_first`` defaults to the
+    config's. Goldens are recorded on the host CPU (``device``'s default);
+    on the card the same record holds the card's fp32 logits."""
+    from ..config import RuntimeConfig
+    from ..engine import InferenceEngine
+    from ..models.gliclass import gliclass_forward
+    from ..prompting import pack_prompts
+
+    prompt_first = cfg.prompt_first if prompt_first is None else prompt_first
+    ptok = tokenizer if isinstance(tokenizer, PromptTokenizer) else PromptTokenizer(tokenizer)
+    batch = ptok.encode_batch(pack_prompts(texts, labels, same_labels, prompt_first), max_length=max_length)
+    n_labels = max(len(labels[0] if same_labels else labels[i]) for i in range(len(texts)))
+    engine = InferenceEngine(cfg, params, RuntimeConfig(max_length=max_length, compute_dtype="float32"),
+                             device=device)
+    with torch.inference_mode():
+        logits = gliclass_forward(engine.params, torch.from_numpy(batch.input_ids).to(engine.device),
+                                  torch.from_numpy(batch.attention_mask).to(engine.device), cfg, n_labels,
+                                  torch.float32).cpu()
+    return {
+        "texts": list(texts),
+        "labels": [list(l) for l in labels],
+        "same_labels": same_labels,
+        "prompt_first": prompt_first,
+        "max_length": max_length,
+        "logits": np.round(logits.numpy().astype(np.float64), 5).tolist(),
+    }
 
 
 def export_bundle(

@@ -296,9 +296,9 @@ def encoder_layer(
         attn_out = disentangled_attention(
             p["attn"], x, rel_emb, c2p_cols, p2c_cols, cfg, compute_dtype, key_mask, route, seq
         )
-    x = layer_norm(p["attn"]["ln"], attn_out + x, cfg.layer_norm_eps)
+    x = layer_norm(p["attn"]["ln"], attn_out, cfg.layer_norm_eps, residual=x)
     h = fused_ffn(p["ffn"]["up"], p["ffn"]["down"], x, cfg.hidden_act, compute_dtype, tp_group("ffn"))
-    return layer_norm(p["ffn"]["ln"], h + x, cfg.layer_norm_eps)
+    return layer_norm(p["ffn"]["ln"], h, cfg.layer_norm_eps, residual=x)
 
 
 def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
@@ -333,7 +333,7 @@ def conv_layer(p: Params, embed_out: torch.Tensor, layer0_out: torch.Tensor,
         out = out + x[:, off + t : off + t + n] @ w[t]
     m = attention_mask[..., None].float()
     out = activation(cfg.conv_act)(out * m).to(compute_dtype)
-    y = layer_norm(p["ln"], layer0_out + out, cfg.layer_norm_eps)
+    y = layer_norm(p["ln"], layer0_out, cfg.layer_norm_eps, residual=out)
     return y * m.to(y.dtype)
 
 

@@ -186,9 +186,11 @@ def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = N
     return y.to(part.dtype)
 
 
-def layer_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm with {"scale", "bias"}; statistics in fp32."""
-    xf = x.float()
+def layer_norm(p: Params, x: torch.Tensor, eps: float, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """LayerNorm with {"scale", "bias"}; statistics in fp32. With
+    ``residual``, the norm of ``x + residual``, the sum taken in fp32 (the
+    JAX package's graph fuses the add into the norm and never rounds it)."""
+    xf = x.float() if residual is None else x.float() + residual.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
@@ -211,18 +213,25 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def _gelu_tanh_once(x: torch.Tensor) -> torch.Tensor:
+    """:func:`gelu_tanh` computed in fp32 and rounded once to x's dtype, as
+    the JAX package's fused graph computes it; op by op in bf16 it rounds
+    seven times."""
+    return gelu_tanh(x.float()).to(x.dtype)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """erf gelu in fp32 (parity with HF); the tanh form in reduced precision,
     whose difference from erf (< 1.5e-3) is below bf16's rounding."""
     if x.dtype == torch.float32:
         return F.gelu(x)
-    return gelu_tanh(x)
+    return _gelu_tanh_once(x)
 
 
 _ACTIVATIONS = {
     "gelu": _gelu,
-    "gelu_new": gelu_tanh,
-    "gelu_pytorch_tanh": gelu_tanh,
+    "gelu_new": _gelu_tanh_once,
+    "gelu_pytorch_tanh": _gelu_tanh_once,
     "relu": F.relu,
     "silu": F.silu,
     "swish": F.silu,

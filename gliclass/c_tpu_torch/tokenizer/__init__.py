@@ -145,6 +145,12 @@ class Tokenizer:
         return encs
 
     # -------------------------------------------------------------- to_str
+    def save(self, path: str) -> None:
+        """Write :meth:`to_str` to ``path``; ``tokenizers`` and this reader
+        read it back to the same string."""
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.to_str())
+
     def to_str(self) -> str:
         """The file as ``tokenizers.Tokenizer.to_str()`` writes it: compact
         JSON in the file's key order, floats as Rust's ``ryu`` prints them,

@@ -145,6 +145,31 @@ def test_gelu_matches_jax(dtype):
     _close(tl.gelu_tanh(_t(x)), jax.nn.gelu(_j(x), approximate=True), "float32")
 
 
+def test_layer_norm_of_a_residual_sum_rounds_once():
+    """``residual=``: the norm of the sum taken in fp32, one rounding at the
+    end, as the JAX package's jitted graph fuses the add into the norm."""
+    rng = np.random.default_rng(7)
+    a, b = (rng.normal(0, 2.0, size=(3, 9, 48)).astype(np.float32) for _ in range(2))
+    p = {"scale": rng.normal(1, 0.1, 48).astype(np.float32), "bias": rng.normal(0, 0.1, 48).astype(np.float32)}
+    ta, tb = _t(a, "bfloat16"), _t(b, "bfloat16")
+    got = tl.layer_norm(_tree(p, _t), ta, 1e-7, residual=tb)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tl.layer_norm(_tree(p, _t), ta.float() + tb.float(), 1e-7).bfloat16())
+    want = jax.jit(lambda x, y: jl.layer_norm(_tree(p, _j), x + y, 1e-7))(_j(a, "bfloat16"), _j(b, "bfloat16"))
+    _close(got, want, "bfloat16")
+
+
+def test_reduced_precision_gelu_rounds_once():
+    """bf16 gelu is the fp32 tanh form rounded once (op by op it would round
+    seven times), within a bf16 ulp of the JAX package's jitted graph."""
+    x = _t(np.random.default_rng(8).normal(0, 3, size=(4096,)), "bfloat16")
+    for name in ("gelu", "gelu_new", "gelu_pytorch_tanh"):
+        got = tl.activation(name)(x)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, tl.gelu_tanh(x.float()).bfloat16())
+    _close(tl._gelu(x), jax.jit(jl._gelu)(_j(_np(x), "bfloat16")), "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_masked_softmax_matches_jax(dtype):
     x = np.random.default_rng(6).normal(0, 4, size=(2, 3, 7, 11)).astype(np.float32)

@@ -249,10 +249,11 @@ def test_pipeline_call_api(bundle_dir, engine, overlap):
 def test_port_imports_no_jax_and_nothing_of_c_tpu():
     """Import the port and every module of it in a fresh interpreter (the
     serving slice's serving, cli and utils.eval by name, the model-production
-    slice's converter, perf model and init functions by name, then
-    everything else); no module named jax or jax.*, and none named
-    gliclass.c_tpu or gliclass.c_tpu.* (gliclass.c_tpu_torch itself shares
-    that prefix)."""
+    slice's converter, perf model and init functions by name, the
+    real-scale module and the BPE trainer by name, then everything else);
+    no module named jax or jax.*, tokenizers or transformers (or below
+    them), and none named gliclass.c_tpu or gliclass.c_tpu.*
+    (gliclass.c_tpu_torch itself shares that prefix)."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import gliclass.c_tpu_torch.serving, gliclass.c_tpu_torch.cli, gliclass.c_tpu_torch.utils.eval\n"
@@ -267,10 +268,12 @@ def test_port_imports_no_jax_and_nothing_of_c_tpu():
         "from gliclass.c_tpu_torch.models.heads import init_head_params, init_lstm_params\n"
         "from gliclass.c_tpu_torch.models.gliclass import init_gliclass_params\n"
         "from gliclass.c_tpu_torch.config import suggest_seq_buckets\n"
+        "from gliclass.c_tpu_torch.utils.realscale import build_realscale_tokenizer, ensure_realscale_bundle\n"
+        "from gliclass.c_tpu_torch.tokenizer.trainers import BpeTrainer, train_from_iterator\n"
         "import gliclass.c_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'gliclass.c_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'tokenizers', 'transformers')\n"
         "       or k == 'gliclass.c_tpu' or k.startswith('gliclass.c_tpu.')]\n"
         "print(json.dumps([bad, sorted(k for k in sys.modules if k.startswith('gliclass.'))]))\n"
     )
@@ -281,7 +284,8 @@ def test_port_imports_no_jax_and_nothing_of_c_tpu():
     assert bad == []
     for name in ("serving", "cli", "utils.eval", "parallel.scheduler", "training.train", "training.data",
                  "training.checkpoint", "convert.convert", "convert.hf_backbones", "convert.torch_ref", "utils.perf",
-                 "utils.metrics", "models.deberta", "models.llama", "models.heads", "models.gliclass"):
+                 "utils.metrics", "models.deberta", "models.llama", "models.heads", "models.gliclass",
+                 "utils.realscale", "tokenizer.trainers"):
         assert f"gliclass.c_tpu_torch.{name}" in loaded
 
 

@@ -129,7 +129,8 @@ def suggest_seq_buckets(
 ) -> tuple[int, ...]:
     """Propose a seq-bucket ladder for a MEASURED prompt-length distribution.
 
-    The JAX package's ladder rule, unchanged: fine-grained buckets
+    The JAX package's ladder rule, with every bucket capped at
+    ``max_length`` (the JAX rule can return one above it): fine-grained buckets
     (multiples of ``granularity``) through the POPULATED range between the
     p5 and p95 of the distribution, then a coarse power-of-two-ish tail up
     to ``max_length`` for stragglers. ``budget`` caps the ladder size:
@@ -152,9 +153,12 @@ def suggest_seq_buckets(
     def up(x: float) -> int:
         return int(-(-int(x) // g) * g)
 
-    lo = max(g, up(np.quantile(L, 0.05)))
-    # hi >= lo >= g guarantees the coarse-tail loop below always advances
-    # (up(t * 1.5) > t for any t >= g) even for degenerate distributions
+    # Every bucket is at most max_length (the JAX rule's lo is not capped:
+    # all lengths 100 at max_length 100, granularity 16, gave (100, 112)).
+    lo = min(max_length, max(g, up(np.quantile(L, 0.05))))
+    # hi >= lo guarantees the coarse-tail loop below always advances
+    # (up(t * 1.5) > t for any t >= g; lo < g only when lo == max_length,
+    # where the loop does not run) even for degenerate distributions
     hi = max(lo, min(max_length, up(np.quantile(L, 0.95))))
     fine = list(range(lo, hi + 1, g))
     # coarse tail: double-ish steps covering the p95..max_length stragglers

@@ -166,6 +166,13 @@ def load_checkpoint_state_dict(model, sd: Mapping) -> None:
     model.load_state_dict({k: v for k, v in sd.items() if k in model_sd}, strict=False)
 
 
+def _floats_to(tree: Any, dtype: torch.dtype) -> Any:
+    """Every floating tensor of ``tree`` in ``dtype`` (INT8 leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _floats_to(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
+
+
 def forward_golden_logits(
     cfg: GLiClassConfig,
     params: Params,
@@ -176,13 +183,21 @@ def forward_golden_logits(
     prompt_first: bool | None = None,
     max_length: int = 1024,
     device="cpu",
+    dtype: str = "float32",
 ) -> dict[str, Any]:
     """The golden-logit record of :func:`.torch_ref.golden_logits` from the
     port's own fp32 forward (``params``: numpy or CPU tensors), for a bundle
     made without ``transformers``: the logits of the packed prompts at
     ``max_length``, rounded to 5 decimals. ``prompt_first`` defaults to the
     config's. Goldens are recorded on the host CPU (``device``'s default);
-    on the card the same record holds the card's fp32 logits."""
+    on the card the same record holds the card's fp32 logits.
+
+    ``dtype`` "float64" runs a decoder backbone's forward in fp64 on the
+    CPU: the exact logits to the record's 5 decimals, on any host. An fp32
+    forward on the CPU moves with the host's code paths (AVX2 or AVX-512
+    sums, threads): at the decoders' real-scale widths, whose logits reach
+    |logit| 45, by up to 4e-4 (``scripts/golden_host_spread.py``), near
+    the 1e-3 the fp32 ``selftest`` holds the card to."""
     from ..config import RuntimeConfig
     from ..engine import InferenceEngine
     from ..models.gliclass import gliclass_forward
@@ -192,12 +207,16 @@ def forward_golden_logits(
     ptok = tokenizer if isinstance(tokenizer, PromptTokenizer) else PromptTokenizer(tokenizer)
     batch = ptok.encode_batch(pack_prompts(texts, labels, same_labels, prompt_first), max_length=max_length)
     n_labels = max(len(labels[0] if same_labels else labels[i]) for i in range(len(texts)))
+    compute = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    if compute == torch.float64 and (torch.device(device).type != "cpu" or cfg.backbone.model_type == "deberta-v2"):
+        raise ValueError("float64 goldens: a decoder backbone, on the CPU")
     engine = InferenceEngine(cfg, params, RuntimeConfig(max_length=max_length, compute_dtype="float32"),
                              device=device)
+    run_params = _floats_to(engine.params, compute)
     with torch.inference_mode():
-        logits = gliclass_forward(engine.params, torch.from_numpy(batch.input_ids).to(engine.device),
+        logits = gliclass_forward(run_params, torch.from_numpy(batch.input_ids).to(engine.device),
                                   torch.from_numpy(batch.attention_mask).to(engine.device), cfg, n_labels,
-                                  torch.float32).cpu()
+                                  compute).cpu()
     return {
         "texts": list(texts),
         "labels": [list(l) for l in labels],

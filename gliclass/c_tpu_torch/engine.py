@@ -30,6 +30,7 @@ same forward, until the leader's :meth:`InferenceEngine.stop_followers`.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import traceback
@@ -40,7 +41,7 @@ import torch
 
 from .config import GLiClassConfig, RuntimeConfig
 from .convert.params import params_from_numpy
-from .models.gliclass import gliclass_probs
+from .models.gliclass import gliclass_forward, gliclass_probs
 from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
 from .parallel.collectives import all_gather_rows, broadcast, model_parallel, seq_parallel
@@ -166,20 +167,36 @@ class InferenceEngine:
         # issue forwards.
         self._leading = False
         self._lock = threading.Lock()
+        self._logits = False
+
+    @contextlib.contextmanager
+    def returning_logits(self):
+        """Within this block every forward returns the logits before the
+        sigmoid (fp32 [B, max_labels]; padded label slots -1e4) where it
+        returns probabilities otherwise: the same params, quantization,
+        dtype, route and buckets, one op fewer. The golden-logit check reads
+        them (``utils.eval.golden_logit_check``). Over a mesh every rank
+        enters it, as every rank runs ``selftest``."""
+        self._logits = True
+        try:
+            yield
+        finally:
+            self._logits = False
 
     # ------------------------------------------------------------------
     def _forward(self, ids: torch.Tensor, mask: torch.Tensor, max_labels: int) -> torch.Tensor:
         m = self.mesh
+        forward = gliclass_forward if self._logits else gliclass_probs
         with (torch.inference_mode(), act_quant(self._act_quant), model_parallel(m.model_group, self.plan.pairs),
               seq_parallel(m.seq_group)):
             if m.dp > 1:  # this data rank's contiguous rows
                 n = ids.shape[0] // m.dp
                 ids, mask = ids[m.data_rank * n:(m.data_rank + 1) * n], mask[m.data_rank * n:(m.data_rank + 1) * n]
-            probs = gliclass_probs(
+            out = forward(
                 self.params, ids, mask, self.cfg, max_labels, self.compute_dtype,
                 self.runtime.attn_route,
             )
-            return all_gather_rows(probs, m.data_group)
+            return all_gather_rows(out, m.data_group)
 
     def _step(self, ids: np.ndarray, mask: np.ndarray, max_labels: int, dev_inputs=None) -> torch.Tensor:
         """One forward of host arrays ``ids``/``mask`` [B, S] (``dev_inputs``:

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import GLiClassConfig
-from ..ops.layers import activation, linear, row_linear
+from ..ops.layers import activation_per_op, linear, row_linear, wide
 from ..parallel.collectives import copy_to_model, tp_group
 from . import _init
 
@@ -41,7 +41,8 @@ def extract_label_embeddings(
     ordinal = torch.cumsum(is_label.to(torch.int32), dim=-1) - 1
     slots = torch.arange(max_labels, device=input_ids.device, dtype=torch.int32)
     onehot = (ordinal[..., None] == slots) & is_label[..., None]  # [B,S,L]
-    label_emb = torch.einsum("bsl,bsh->blh", onehot.float(), hidden.float()).to(hidden.dtype)
+    hw = wide(hidden)
+    label_emb = torch.einsum("bsl,bsh->blh", onehot.to(hw.dtype), hw).to(hidden.dtype)
     counts = is_label.sum(dim=-1)
     label_mask = slots[None, :] < counts[:, None]
     return label_emb, label_mask
@@ -92,15 +93,17 @@ def pool_text(
 
 
 def features_projector(p: Params, x: torch.Tensor, act_name: str, compute_dtype, group=None) -> torch.Tensor:
-    """FeaturesProjector: Linear(H -> 4H) -> act -> Linear(4H -> H);
-    ``group``: the model group its 4H is sharded over (None: whole)."""
-    h = activation(act_name)(linear(p["linear_1"], copy_to_model(x, group), compute_dtype))
+    """FeaturesProjector: Linear(H -> 4H) -> act -> Linear(4H -> H), the
+    activation op by op in reduced precision (:func:`~..ops.layers.
+    activation_per_op`); ``group``: the model group its 4H is sharded over
+    (None: whole)."""
+    h = activation_per_op(act_name)(linear(p["linear_1"], copy_to_model(x, group), compute_dtype))
     return row_linear(p["linear_2"], h, compute_dtype, group)
 
 
 def score_simple(text_rep: torch.Tensor, label_rep: torch.Tensor) -> torch.Tensor:
     """ScorerDot: logits[b,l] = <text_rep[b], label_rep[b,l]> in fp32."""
-    return torch.einsum("bh,blh->bl", text_rep.float(), label_rep.float())
+    return torch.einsum("bh,blh->bl", wide(text_rep), wide(label_rep))
 
 
 def score_mlp(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
@@ -110,7 +113,7 @@ def score_mlp(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
     feats = torch.cat([label_rep, t, label_rep * t], dim=-1)
     group = tp_group("scorer")
     h = F.relu(linear(p["mlp_1"], copy_to_model(feats, group), compute_dtype))
-    return row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0].float()
+    return wide(row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0])
 
 
 def score_weighted_dot(p: Params, text_rep: torch.Tensor, label_rep: torch.Tensor,
@@ -124,7 +127,7 @@ def score_weighted_dot(p: Params, text_rep: torch.Tensor, label_rep: torch.Tenso
     feats = torch.cat([t2[..., :H], l2[..., :H], t2[..., H:] * l2[..., H:]], dim=-1)
     group = tp_group("scorer")
     h = F.relu(linear(p["mlp_1"], copy_to_model(feats, group), compute_dtype))
-    return row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0].float()
+    return wide(row_linear(p["mlp_2"], h, compute_dtype, group)[..., 0])
 
 
 def fuse_layers(p: Params, states: torch.Tensor) -> torch.Tensor:
@@ -224,7 +227,8 @@ def gliclass_head(
     if "logit_scale" in params:
         # Learned CLIP-style scale, present iff the converted checkpoint had it.
         logits = logits * torch.exp(params["logit_scale"].float())
-    logits = torch.where(label_mask, logits.float(), torch.full_like(logits, NEG_LOGIT))
+    logits = wide(logits)
+    logits = torch.where(label_mask, logits, torch.full_like(logits, NEG_LOGIT))
     return logits, label_mask
 
 

@@ -41,11 +41,10 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import BackboneConfig, check_attn_route
 from ..ops.causal_attention import causal_flash_attention, causal_mask
-from ..ops.layers import linear, masked_softmax, rms_norm, row_linear
+from ..ops.layers import act_quant_enabled, activation_per_op, linear, masked_softmax, rms_norm, row_linear
 from ..parallel.collectives import SeqShard, all_gather_seq, copy_to_model, tp_group
 from . import _init
 from .deberta import _layer, _split_heads
@@ -156,11 +155,14 @@ def causal_mask_bias(attention_mask: torch.Tensor, seq: SeqShard | None = None) 
 
 
 def llama_mlp(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """SwiGLU, rounded as the JAX package's graph rounds it: silu op by op,
+    and under w8a8 the product gate * up quantized unrounded (in fp32)."""
     group = tp_group("mlp")
     x = copy_to_model(x, group)
-    gate = F.silu(linear(p["gate"], x, compute_dtype))
+    gate = activation_per_op("silu")(linear(p["gate"], x, compute_dtype)).to(compute_dtype)
     up = linear(p["up"], x, compute_dtype)
-    return row_linear(p["down"], gate * up, compute_dtype, group)
+    h = gate.float() * up.float() if act_quant_enabled() else gate * up
+    return row_linear(p["down"], h, compute_dtype, group)
 
 
 def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -200,10 +202,12 @@ def llama_encode(params: Params, input_ids: torch.Tensor, attention_mask: torch.
         p = _layer(layers, i)
         a = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
         if score:
-            x = x + score_attention(p["attn"], a, mask_bias, cos, sin, cfg, compute_dtype, seq)
+            o = score_attention(p["attn"], a, mask_bias, cos, sin, cfg, compute_dtype, seq)
         else:
-            x = x + llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype, seq)
-        m = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
+            o = llama_attention(p["attn"], a, key_mask, cos, sin, cfg, compute_dtype, seq)
+        # The norm takes the unrounded sum, the residual stream the rounded one.
+        m = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps, residual=o)
+        x = x + o
         x = x + llama_mlp(p["mlp"], m, compute_dtype)
     final = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
     return torch.stack(states + [final]) if return_all_layers else final

@@ -31,6 +31,7 @@ import torch
 
 from . import _build
 from .fused_attention import CUDA_CORE, TENSOR_CORE
+from .layers import wide
 
 # Kernel launches since the last reset (the main path's proof): every launch
 # of K5, the tensor-core ones among them, and those at a query-row offset
@@ -70,14 +71,15 @@ def causal_mask(Sq: int, S: int, device, q_off: int = 0) -> torch.Tensor:
 def causal_flash_attention_plain(qg, k, v, attention_mask, scale, q_off=0):
     """Dense reference of the kernel -> [B, nkv, g, Sq, d] in qg's dtype."""
     Sq, S = qg.shape[3], k.shape[2]
-    s = torch.einsum("bkgid,bkjd->bkgij", qg.float(), k.float()) * scale
+    s = torch.einsum("bkgid,bkjd->bkgij", wide(qg), wide(k)) * scale
     causal = causal_mask(Sq, S, qg.device, q_off)
     ok = causal[None, None, None] & (attention_mask > 0)[:, None, None, None, :]
     s = torch.where(ok, s, torch.full_like(s, _NEG))
     p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    ctx = torch.einsum("bkgij,bkjd->bkgid", p.to(v.dtype).float(), v.float())
-    ctx = torch.where(l > 0, ctx / torch.where(l > 0, l, torch.ones_like(l)), torch.zeros_like(ctx))
+    ctx = torch.einsum("bkgij,bkjd->bkgid", wide(p.to(v.dtype)), wide(v))
+    # Times 1/l, as the kernels and the JAX kernel normalise (not ctx / l).
+    ctx = torch.where(l > 0, ctx * (1.0 / torch.where(l > 0, l, torch.ones_like(l))), torch.zeros_like(ctx))
     return ctx.to(qg.dtype)
 
 

@@ -50,6 +50,18 @@ def act_quant_enabled() -> bool:
     return bool(_ACT_QUANT.get())
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` for the fp32 sums and statistics of the plain versions: fp32,
+    or fp64 where it is fp64 (a decoder bundle's goldens, computed in fp64
+    on the CPU, ``convert.forward_golden_logits``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def full_precision(dtype: torch.dtype) -> bool:
+    """fp32 or fp64: one rounding per op, no reduced-precision rules."""
+    return dtype in (torch.float32, torch.float64)
+
+
 def linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y = x @ w (+ b). fp32: fp32 products and fp32 bias. bf16/f16: output
     and bias add in the compute dtype."""
@@ -86,10 +98,14 @@ def _linear_int8(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None =
     return int8_matmul(x.to(dtype), p["w_q"], p["scale"], None if b is None else b.float())
 
 
-def row_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def row_quant(x: torch.Tensor, reciprocal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric absmax INT8: s = max|x|/127 clamped at 1e-10,
-    q = round_half_even(x / s). ``x`` fp32."""
-    return row_quant_amax(x, x.abs().amax(dim=-1, keepdim=True))
+    q = round_half_even(x / s). ``x`` fp32. ``reciprocal``: s = max|x| *
+    fp32(1/127), as the JAX package's compiled w8a8 linear computes it
+    (its compiler turns the division by the constant into that product;
+    the two differ in the last bit of s for some rows, and such a row's
+    int8 values can then differ by one step)."""
+    return row_quant_amax(x, x.abs().amax(dim=-1, keepdim=True), reciprocal)
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,10 +143,10 @@ def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
-def row_quant_amax(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def row_quant_amax(x: torch.Tensor, amax: torch.Tensor, reciprocal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`row_quant` of ``x`` with its rows' absmax given ([M, 1]; the
     whole row's, when ``x`` holds a shard of each row)."""
-    s = torch.clamp(amax / 127.0, min=1e-10)
+    s = torch.clamp(amax * (1.0 / 127.0) if reciprocal else amax / 127.0, min=1e-10)
     return torch.round(x / s).to(torch.int8), s
 
 
@@ -145,14 +161,17 @@ def _linear_w8a8(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     ``group``: x holds this rank's shard of each row (a row-parallel layer).
     The row absmax is then the maximum over the group, so the int8 operand
     is the one process's bit for bit, and the exact int32 partial sums are
-    summed over the group before the scales: y equals one process's."""
+    summed over the group before the scales: y equals one process's.
+
+    The activation scale is the JAX package's (``row_quant(...,
+    reciprocal=True)``); K2's quantiser keeps its own."""
     *lead, K = x.shape
     xf = x.reshape(-1, K).float()
     if group_size(group) > 1:
-        x_q, s_x = row_quant_amax(xf, all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group))
+        x_q, s_x = row_quant_amax(xf, all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group), True)
         acc = all_reduce_sum(int_mm(x_q, p["w_q"]), group)
     else:
-        x_q, s_x = row_quant(xf)
+        x_q, s_x = row_quant(xf, True)
         acc = int_mm(x_q, p["w_q"])
     y = acc.float() * s_x * p["scale"].float()
     return y.reshape(*lead, y.shape[-1])
@@ -198,9 +217,12 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float, residual: torch.Tensor | 
     return y.to(x.dtype)
 
 
-def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm (decoder backbones), fp32 statistics."""
-    xf = x.float()
+def rms_norm(p: Params, x: torch.Tensor, eps: float, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """RMSNorm (decoder backbones), fp32 statistics. With ``residual``, the
+    norm of ``x + residual``, the sum taken in fp32 (the JAX package's graph
+    feeds the unrounded sum to the norm; the residual stream keeps the
+    rounded one)."""
+    xf = wide(x) if residual is None else wide(x) + wide(residual)
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
@@ -220,10 +242,27 @@ def _gelu_tanh_once(x: torch.Tensor) -> torch.Tensor:
     return gelu_tanh(x.float()).to(x.dtype)
 
 
+def _gelu_tanh_per_op(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` on a reduced-precision ``x`` as
+    the JAX package's graph runs it: each op rounded to x's dtype, the
+    constants too, and the last product x * cdf left in fp32."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x.float() * cdf.float()
+
+
+def _silu_per_op(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` on a reduced-precision ``x`` as the JAX package's
+    graph runs it, x * (1 / (1 + exp(-x))), each op rounded to x's dtype
+    but the last product, left in fp32."""
+    return x.float() * (1.0 / (1.0 + torch.exp(-x))).float()
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """erf gelu in fp32 (parity with HF); the tanh form in reduced precision,
     whose difference from erf (< 1.5e-3) is below bf16's rounding."""
-    if x.dtype == torch.float32:
+    if full_precision(x.dtype):
         return F.gelu(x)
     return _gelu_tanh_once(x)
 
@@ -244,6 +283,24 @@ def activation(name: str):
         return _ACTIVATIONS[name]
     except KeyError:
         raise ValueError(f"unsupported activation: {name!r}") from None
+
+
+_PER_OP = {"gelu": _gelu_tanh_per_op, "gelu_new": _gelu_tanh_per_op, "gelu_pytorch_tanh": _gelu_tanh_per_op,
+           "silu": _silu_per_op, "swish": _silu_per_op}
+
+
+def activation_per_op(name: str):
+    """:func:`activation` as the JAX package applies it to an array of the
+    compute dtype (the head's projectors, the decoders' gate): in reduced
+    precision the tanh gelu and silu round after each op, and their last
+    product comes back in fp32 for the layer that takes it (a w8a8 linear
+    quantizes it unrounded, any other rounds it first). fp32 input, and the
+    other activations, as :func:`activation`; fp64 as fp32."""
+    f = activation(name)
+    if name not in _PER_OP:
+        return f
+    per_op = _PER_OP[name]
+    return lambda x: f(x) if full_precision(x.dtype) else per_op(x)
 
 
 def masked_softmax(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -145,6 +145,14 @@ class ZeroShotClassificationPipeline:
         timer.add_count("texts", len(texts))
         return probs
 
+    def predict_logits(
+        self, texts: Sequence[str], labels: Sequence[Sequence[str]], same_labels: bool
+    ) -> np.ndarray:
+        """[num_texts, max_label_count] per-label logits: :meth:`predict_probs`
+        (the same tokenization, buckets and forwards) before the sigmoid."""
+        with self.engine.returning_logits():
+            return self.predict_probs(texts, labels, same_labels)
+
     def __call__(
         self,
         texts: Sequence[str] | str,

@@ -197,7 +197,9 @@ class AffixEncoder:
     pre-tokenizers like ByteLevel(add_prefix_space=True) break the
     identity); any tokenizer that breaks it falls back to plain
     ``encode_batch`` permanently (``self.exact`` False) — the fast
-    path can never change ids.
+    path can never change ids. A ``tokenizer.json`` with a ``truncation``
+    block is never exact: it cuts the segments and the whole prompt at
+    different points, which no short probe shows.
 
     Truncation matches the full path: keep the first ``max_length`` tokens
     of the composed sequence (reference src/tokenizer.c:44-49).
@@ -224,6 +226,13 @@ class AffixEncoder:
         Prefer :meth:`for_labels`, which wires it automatically."""
         self.tok = tokenizer
         t = tokenizer._tok
+        if getattr(t, "truncation", None):
+            # The file's own truncation cuts each segment encode and the
+            # full-string encode at different points, so composition cannot
+            # be checked on short probes: the full-string path serves all.
+            self.exact = False
+            self._why = "tokenizer.json sets truncation"
+            return
         # Recover the post-processor template: probe a plain word.
         probe = "a"
         core = t.encode(probe, add_special_tokens=False).ids

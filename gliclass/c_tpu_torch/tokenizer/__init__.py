@@ -91,6 +91,12 @@ class Tokenizer:
         """As ``tokenizers.Tokenizer.padding``: None, or the pad parameters."""
         return None if self._padding is None else dict(self._padding)
 
+    @property
+    def truncation(self) -> dict | None:
+        """As ``tokenizers.Tokenizer.truncation``: None, or the truncation
+        parameters."""
+        return None if self._truncation is None else dict(self._truncation)
+
     # --------------------------------------------------------------- encode
     def _tokens(self, text: str) -> list[int]:
         ids: list[int] = []

@@ -1,9 +1,11 @@
 """Evaluation metrics and the accuracy gates of ``cli selftest``.
 
 The golden-logit check replays a bundle's recorded samples (fp32 torch
-reference logits) through the port; the INT8 gate compares micro-F1 of the
+reference logits) through the port and compares logits (the JAX package
+compares inverted probabilities); the INT8 gate compares micro-F1 of the
 INT8 and fp32 paths over a deterministic synthetic eval set (BASELINE.md:
-delta <= 0.5%). Same functions and results as ``gliclass.c_tpu.utils.eval``.
+delta <= 0.5%). Otherwise the functions and results of
+``gliclass.c_tpu.utils.eval``.
 """
 
 from __future__ import annotations
@@ -100,8 +102,11 @@ def golden_logit_check(pipe, goldens, runtime) -> float:
     |logit delta| against the recorded reference logits.
 
     Each golden replays under the conditions it was recorded at (max_length,
-    prompt_first). Hard-masked label slots (logit -1e4) do not round-trip
-    through probabilities and are excluded."""
+    prompt_first). The logits are the engine's own, read before the sigmoid
+    (``pipeline.predict_logits``), so the check holds at any magnitude: the
+    JAX package inverts fp32 probabilities clipped at 1e-12, which cannot
+    tell logits past about 17 (where the fp32 sigmoid reaches 1) or below
+    -27.6 apart. Hard-masked label slots (logit -1e4) are excluded."""
     from ..pipeline import ZeroShotClassificationPipeline
 
     worst = 0.0
@@ -110,13 +115,11 @@ def golden_logit_check(pipe, goldens, runtime) -> float:
         rpipe = ZeroShotClassificationPipeline(
             pipe.engine, pipe.tokenizer, rt, prompt_first=rec.get("prompt_first")
         )
-        probs = rpipe.predict_probs(rec["texts"], rec["labels"], rec["same_labels"])
+        got = rpipe.predict_logits(rec["texts"], rec["labels"], rec["same_labels"])
         golden = np.asarray(rec["logits"], dtype=np.float64)
-        p = np.clip(probs, 1e-12, 1 - 1e-12)
-        got_logits = np.log(p) - np.log1p(-p)
         width = golden.shape[1]
         real = golden > -9.99e3
-        delta = np.abs(got_logits[:, :width] - golden)[real]
+        delta = np.abs(got[:, :width].astype(np.float64) - golden)[real]
         worst = max(worst, float(delta.max()) if delta.size else 0.0)
     return worst
 

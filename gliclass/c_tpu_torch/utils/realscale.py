@@ -23,9 +23,11 @@ How it differs from the JAX package's artifact:
   ``torch.Generator().manual_seed(0)`` on the CPU (the JAX module draws them
   from the ``transformers`` reference model), so a bundle is the same
   wherever it is built, and is not the JAX package's;
-* the goldens are the port's own fp32 logits on the CPU
+* the goldens are the port's own logits on the CPU
   (``convert.convert.forward_golden_logits``), in the converter's record
-  schema; the JAX package reads such a bundle and reproduces them;
+  schema: fp32 for DeBERTa, fp64 for the decoders (qwen, llama), whose
+  logits reach |logit| 38, where an fp32 forward on the CPU moves with the
+  host; the JAX package reads such a bundle and reproduces them;
 * the cache is ``<root>/torch/`` under the same root
   (``GLICLASS_REALSCALE_DIR``, default ``~/.cache/gliclass_realscale``),
   so neither package ever takes the other's bundle for its own; the
@@ -168,8 +170,9 @@ def _to_numpy(tree):
 def write_bundle(path: str, cfg, tokenizer) -> dict:
     """The bundle of ``cfg`` at ``path``: weights from
     ``init_gliclass_params`` (``torch.Generator().manual_seed(0)``, CPU),
-    INT8 weights by ``quantize_tree``, the port's fp32 CPU goldens of
-    ``GOLDEN_SAMPLES``, ``tokenizer``'s ``to_str()`` as tokenizer.json.
+    INT8 weights by ``quantize_tree``, the port's CPU goldens of
+    ``GOLDEN_SAMPLES`` (fp64 for a decoder), ``tokenizer``'s ``to_str()``
+    as tokenizer.json.
     Returns the seconds of each stage and the bundle's bytes."""
     import torch
 
@@ -183,7 +186,10 @@ def write_bundle(path: str, cfg, tokenizer) -> dict:
     t_init = time.perf_counter()
     int8 = quantize_tree(params)
     t_quant = time.perf_counter()
-    goldens = [forward_golden_logits(cfg, params, tokenizer, texts, labels, same)
+    # A decoder's logits reach |logit| 38 here: its goldens in fp64, the
+    # same on every host (forward_golden_logits).
+    dtype = "float32" if cfg.backbone.model_type == "deberta-v2" else "float64"
+    goldens = [forward_golden_logits(cfg, params, tokenizer, texts, labels, same, dtype=dtype)
                for texts, labels, same in GOLDEN_SAMPLES]
     t_gold = time.perf_counter()
     save_bundle(path, cfg, params, tokenizer_json=tokenizer._tok.to_str(), goldens=goldens, int8_params=int8)

@@ -17,7 +17,7 @@ over each (K1/K1' for the DeBERTa variants, K5/K5' for qwen and llama);
 on the host CPU (every op's plain version) in bf16 and with
 ``--int8-dynamic``, the witness that tells a kernel's error from the
 artifact's; and the goldens' range beside the card's fp32 logits of the
-same records, logit against logit. Prints the card line, one JSON line per
+same records outside the pipeline. Prints the card line, one JSON line per
 variant and a last JSON line with all of them; exits 1 if a selftest did.
 
 Needs torch, numpy, the card and the CUDA toolkit; no JAX, no
@@ -80,9 +80,9 @@ def selftest(bundle: str, device: str, flags: list) -> dict:
 
 def golden_logits_on_card(bundle: str) -> dict:
     """The bundle's goldens against the same records computed by the port
-    in fp32 on the card (``forward_golden_logits(..., device="cuda")``):
-    logit against logit, which holds where the selftest's probabilities
-    saturate (|logit| above ~27.6). Also the goldens' range."""
+    in fp32 on the card (``forward_golden_logits(..., device="cuda")``),
+    logit against logit outside the pipeline (no seq or row buckets); and
+    the goldens' range."""
     import numpy as np
 
     from gliclass.c_tpu_torch.convert import bundle as B

@@ -3368,6 +3368,13 @@ def file_sha256(path: str) -> str:
 # artifact; the port reads 0.151 on the card and 0.177 on the CPU there.
 REALSCALE_W8A8_TOL = 0.28
 
+# The JAX package's max |logit delta| on a port-built gliclass-base
+# artifact, read on its CPU (`scripts/realscale_jax_reference.py --variant
+# base`; the seed-0 weights and fp32 goldens of this phase's bundle, the
+# tokenizer the card's host trains): phase 16 prints the card's readings
+# beside them. Keyed by the selftest's flags.
+REALSCALE_JAX_GOLDEN = {"": 0.070, "--int8-dynamic": 0.189}
+
 
 def realscale(rng: np.random.Generator, dev, cli: list | None = None) -> None:
     """Phase 16: the real-scale bundle built by the port (utils/realscale.py)
@@ -3428,6 +3435,10 @@ def realscale(rng: np.random.Generator, dev, cli: list | None = None) -> None:
             log(f"(c) cli selftest {name}: exit {st.returncode} in {time.perf_counter() - t0:.1f} s; "
                 + " | ".join(gates) + f" ({card})")
             delta = golden_delta(f"selftest {name}", st.stdout)
+            jax_golden = REALSCALE_JAX_GOLDEN.get(" ".join(flags))
+            if jax_golden is not None:
+                log(f"    {name} golden max |delta|: the port on the card {delta:.6f}, the JAX package on a "
+                    f"port-built artifact (its CPU, recorded) {jax_golden:.3f}")
             if flags == ["--int8-dynamic"]:
                 f1 = any(l.startswith("int8 F1 gate") and l.endswith("PASS") for l in gates)
                 if not (f1 and delta <= REALSCALE_W8A8_TOL):

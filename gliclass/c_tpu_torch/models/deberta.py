@@ -56,7 +56,7 @@ from ..ops.fused_attention import (
     tiled_bias_attention,
 )
 from ..ops.fused_ffn import fused_ffn
-from ..ops.layers import activation, layer_norm, linear, masked_softmax, row_linear
+from ..ops.layers import activation, divide, layer_norm, linear, masked_softmax, row_linear
 from ..parallel.collectives import SeqShard, all_gather_seq, copy_to_model, tp_group
 from . import _init
 
@@ -255,17 +255,17 @@ def score_attention(
         k, v = all_gather_seq(torch.stack((k, v)), 3, seq.group).unbind(0)
         off = seq.off
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
-    scores = ((q.float() @ k.float().transpose(-1, -2)).to(score_dtype) / scale).to(score_dtype)
+    scores = divide((q.float() @ k.float().transpose(-1, -2)).to(score_dtype), scale)
     if cfg.relative_attention:
         pos_q_flat, pos_k_flat = _pos_qk(p_attn, rel_emb, cfg, compute_dtype)
         if "c2p" in cfg.pos_att_type:
             pos_k_rel = _split_heads(pos_k_flat, nh).index_select(1, c2p_cols)
             c2p_rel = torch.einsum("bhid,hmd->bhim", q.float(), pos_k_rel.float())
-            scores = scores + rel_to_abs(c2p_rel.to(score_dtype), k.shape[2], row_off=off) / scale
+            scores = scores + divide(rel_to_abs(c2p_rel.to(score_dtype), k.shape[2], row_off=off), scale)
         if "p2c" in cfg.pos_att_type:
             pos_q_rel = _split_heads(pos_q_flat, nh).index_select(1, p2c_cols)
             p2c_rel = torch.einsum("bhjd,hmd->bhjm", k.float(), pos_q_rel.float())
-            scores = scores + rel_to_abs(p2c_rel.to(score_dtype), n, col_off=off).transpose(-1, -2) / scale
+            scores = scores + divide(rel_to_abs(p2c_rel.to(score_dtype), n, col_off=off).transpose(-1, -2), scale)
     neg = _NEG_INF if score_dtype == torch.float32 else -1e4
     scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, neg))
     probs = masked_softmax(scores).to(compute_dtype)

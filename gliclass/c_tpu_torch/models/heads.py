@@ -92,13 +92,15 @@ def pool_text(
     raise ValueError(f"unsupported pooling_strategy: {strategy!r}")
 
 
-def features_projector(p: Params, x: torch.Tensor, act_name: str, compute_dtype, group=None) -> torch.Tensor:
+def features_projector(p: Params, x: torch.Tensor, act_name: str, compute_dtype, group=None,
+                       round_sum: bool = True) -> torch.Tensor:
     """FeaturesProjector: Linear(H -> 4H) -> act -> Linear(4H -> H), the
     activation op by op in reduced precision (:func:`~..ops.layers.
     activation_per_op`); ``group``: the model group its 4H is sharded over
-    (None: whole)."""
+    (None: whole); ``round_sum``: as :func:`~..ops.layers.linear`'s, for
+    the last linear."""
     h = activation_per_op(act_name)(linear(p["linear_1"], copy_to_model(x, group), compute_dtype))
-    return row_linear(p["linear_2"], h, compute_dtype, group)
+    return row_linear(p["linear_2"], h, compute_dtype, group, round_sum)
 
 
 def score_simple(text_rep: torch.Tensor, label_rep: torch.Tensor) -> torch.Tensor:
@@ -202,12 +204,16 @@ def gliclass_head(
             cfg.prompt_first,
         )
     text_rep = pool_text(hidden, attention_mask, cfg.pooling_strategy, span=span)
+    # The simple scorer's fp32 product takes the projectors' last bias sums
+    # as the JAX package's graph feeds them: unrounded.
+    round_sum = cfg.scorer_type != "simple" or cfg.normalize_features
     text_rep = features_projector(
-        params["text_projector"], text_rep, cfg.projector_hidden_act, compute_dtype, tp_group("text_projector")
+        params["text_projector"], text_rep, cfg.projector_hidden_act, compute_dtype, tp_group("text_projector"),
+        round_sum,
     )
     label_emb = features_projector(
         params["classes_projector"], label_emb, cfg.projector_hidden_act, compute_dtype,
-        tp_group("classes_projector"),
+        tp_group("classes_projector"), round_sum,
     )
     if cfg.normalize_features:
         text_rep = text_rep / torch.clamp(

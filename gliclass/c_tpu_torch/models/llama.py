@@ -44,7 +44,8 @@ import torch
 
 from ..config import BackboneConfig, check_attn_route
 from ..ops.causal_attention import causal_flash_attention, causal_mask
-from ..ops.layers import act_quant_enabled, activation_per_op, linear, masked_softmax, rms_norm, row_linear
+from ..ops.layers import (act_quant_enabled, activation_per_op, divide, linear, masked_softmax, rms_norm,
+                          row_linear)
 from ..parallel.collectives import SeqShard, all_gather_seq, copy_to_model, tp_group
 from . import _init
 from .deberta import _layer, _split_heads
@@ -135,8 +136,8 @@ def score_attention(p: Params, x: torch.Tensor, mask_bias: torch.Tensor, cos, si
     qg, k, v = _qkv_rope(p, copy_to_model(x, group), cos, sin, cfg, compute_dtype)
     k, v = _gather_kv(k, v, seq)
     score_dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
-    scores = (torch.einsum("bkgid,bkjd->bkgij", qg.float(), k.float()).to(score_dtype)
-              / math.sqrt(cfg.head_dim)).to(score_dtype)
+    scores = divide(torch.einsum("bkgid,bkjd->bkgij", qg.float(), k.float()).to(score_dtype),
+                    math.sqrt(cfg.head_dim))
     scores = scores + mask_bias[:, None, None].to(score_dtype)
     probs = masked_softmax(scores).to(compute_dtype)
     ctx = torch.einsum("bkgij,bkjd->bkgid", probs.float(), v.float())

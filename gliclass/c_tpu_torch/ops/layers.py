@@ -62,9 +62,14 @@ def full_precision(dtype: torch.dtype) -> bool:
     return dtype in (torch.float32, torch.float64)
 
 
-def linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None,
+           round_sum: bool = True) -> torch.Tensor:
     """y = x @ w (+ b). fp32: fp32 products and fp32 bias. bf16/f16: output
-    and bias add in the compute dtype."""
+    and bias add in the compute dtype. ``round_sum=False`` (fp weights in
+    reduced precision): the bias sum of the rounded product and the rounded
+    bias returned in fp32, unrounded, as the JAX package's graph feeds it to
+    a product that accumulates in fp32 (XLA runs a bf16 add whose result
+    goes straight into an fp32 dot in fp32)."""
     if "w_q" in p:
         return _linear_int8(p, x, compute_dtype)
     w = p["w"]
@@ -79,7 +84,7 @@ def linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None)
         return y
     y = x @ w
     if b is not None:
-        y = y + b.to(x.dtype)
+        y = y + b.to(x.dtype) if round_sum or full_precision(y.dtype) else y.float() + b.to(x.dtype).float()
     return y
 
 
@@ -177,7 +182,8 @@ def _linear_w8a8(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     return y.reshape(*lead, y.shape[-1])
 
 
-def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
+def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None, group=None,
+               round_sum: bool = True) -> torch.Tensor:
     """A row-parallel dense layer: ``x`` [..., K/tp] and the weight's
     [K/tp, N] rows are this rank's shards over the model ``group``; the
     result is the whole [..., N] on every rank, in :func:`linear`'s dtype.
@@ -188,9 +194,10 @@ def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = N
     adds it: one process's bits. Otherwise the partial product without the
     bias, its sum over the group in fp32 (``reduce_from_model``, whose
     backward is the identity), the bias added once in fp32, one rounding to
-    the output dtype."""
+    the output dtype (none with ``round_sum=False`` and fp weights, as
+    :func:`linear`)."""
     if group_size(group) == 1:
-        return linear(p, x, compute_dtype)
+        return linear(p, x, compute_dtype, round_sum)
     b = p.get("b")
     dtype = compute_dtype or x.dtype
     if "w_q" in p and act_quant_enabled() and dtype != torch.float32:
@@ -202,7 +209,7 @@ def row_linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = N
     y = reduce_from_model(part, group)
     if b is not None:
         y = y + b.float()
-    return y.to(part.dtype)
+    return y if not round_sum and "w_q" not in p else y.to(part.dtype)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float, residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -235,13 +242,6 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def _gelu_tanh_once(x: torch.Tensor) -> torch.Tensor:
-    """:func:`gelu_tanh` computed in fp32 and rounded once to x's dtype, as
-    the JAX package's fused graph computes it; op by op in bf16 it rounds
-    seven times."""
-    return gelu_tanh(x.float()).to(x.dtype)
-
-
 def _gelu_tanh_per_op(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(x, approximate=True)`` on a reduced-precision ``x`` as
     the JAX package's graph runs it: each op rounded to x's dtype, the
@@ -259,18 +259,29 @@ def _silu_per_op(x: torch.Tensor) -> torch.Tensor:
     return x.float() * (1.0 / (1.0 + torch.exp(-x))).float()
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as the JAX package's jitted
+    graph computes it: :func:`gelu_tanh` in fp32 and fp64; in reduced
+    precision each op rounded to x's dtype (:func:`_gelu_tanh_per_op`), the
+    last product too."""
+    if full_precision(x.dtype):
+        return gelu_tanh(x)
+    return _gelu_tanh_per_op(x).to(x.dtype)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """erf gelu in fp32 (parity with HF); the tanh form in reduced precision,
-    whose difference from erf (< 1.5e-3) is below bf16's rounding."""
+    """erf gelu in fp32 (parity with HF); in reduced precision the tanh form
+    as :func:`_gelu_tanh`, whose difference from erf (< 1.5e-3) is below
+    bf16's rounding."""
     if full_precision(x.dtype):
         return F.gelu(x)
-    return _gelu_tanh_once(x)
+    return _gelu_tanh(x)
 
 
 _ACTIVATIONS = {
     "gelu": _gelu,
-    "gelu_new": _gelu_tanh_once,
-    "gelu_pytorch_tanh": _gelu_tanh_once,
+    "gelu_new": _gelu_tanh,
+    "gelu_pytorch_tanh": _gelu_tanh,
     "relu": F.relu,
     "silu": F.silu,
     "swish": F.silu,
@@ -290,12 +301,11 @@ _PER_OP = {"gelu": _gelu_tanh_per_op, "gelu_new": _gelu_tanh_per_op, "gelu_pytor
 
 
 def activation_per_op(name: str):
-    """:func:`activation` as the JAX package applies it to an array of the
-    compute dtype (the head's projectors, the decoders' gate): in reduced
-    precision the tanh gelu and silu round after each op, and their last
-    product comes back in fp32 for the layer that takes it (a w8a8 linear
-    quantizes it unrounded, any other rounds it first). fp32 input, and the
-    other activations, as :func:`activation`; fp64 as fp32."""
+    """:func:`activation` with the last product of a reduced-precision tanh
+    gelu or silu left in fp32, for the layer that takes it (the head's
+    projectors, the decoders' gate): a w8a8 linear quantizes it unrounded,
+    as the JAX package's graph does; any other rounds it first. fp32 and
+    fp64 input, and the other activations, as :func:`activation`."""
     f = activation(name)
     if name not in _PER_OP:
         return f
@@ -303,12 +313,25 @@ def activation_per_op(name: str):
     return lambda x: f(x) if full_precision(x.dtype) else per_op(x)
 
 
+def divide(t: torch.Tensor, d: float) -> torch.Tensor:
+    """``t / d`` for a Python float ``d`` as the JAX package's jitted graph
+    divides: in fp32 and fp64 by ``d``; in reduced precision by ``d``
+    rounded to t's dtype (a Python float takes the array's type), as a
+    product with that divisor's fp32 reciprocal (XLA's form of a division
+    by a constant)."""
+    if full_precision(t.dtype):
+        return t / d
+    return t * (1.0 / float(torch.tensor(d, dtype=t.dtype)))
+
+
 def masked_softmax(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Softmax in the scores dtype: exact fp32 for fp32; for reduced
-    precision, exp in the input dtype with an fp32 max and sum."""
-    if scores.dtype == torch.float32:
+    """Softmax in the scores dtype: exact in fp32 and fp64; for reduced
+    precision as the JAX package's jitted graph computes it: an fp32 max,
+    the difference from it rounded to the scores dtype, then exp, sum and
+    quotient in fp32 (its source casts exp's result to fp32 at once, so XLA
+    never rounds it), the quotient rounded once."""
+    if full_precision(scores.dtype):
         return torch.softmax(scores, dim=dim)
     m = scores.float().amax(dim=dim, keepdim=True)
-    e = torch.exp(scores - m.to(scores.dtype))
-    denom = e.float().sum(dim=dim, keepdim=True)
-    return (e.float() / denom).to(scores.dtype)
+    e = torch.exp((scores - m.to(scores.dtype)).float())
+    return (e / e.sum(dim=dim, keepdim=True)).to(scores.dtype)

@@ -1,24 +1,32 @@
-"""The JAX package on the port's real-scale decoder artifacts, on the CPU:
-the reference readings that ``chip_smoke.py`` phase 17 holds the card to.
+"""The JAX package on the port's real-scale artifacts, on the CPU: the
+reference readings that ``chip_smoke.py`` phases 16 and 17 print beside
+the card's (phase 17 holds the decoders to them).
 
-    python3 scripts/realscale_jax_reference.py --root DIR [--variant qwen llama] [--port-cpu]
+    python3 scripts/realscale_jax_reference.py --root DIR [--variant base qwen llama] [--port-cpu] [--layers L]
 
-``DIR/torch/<variant>/tokenizer.json`` must hold the tokenizer the card's
-host trained (the root of ``chip_smoke.start_decoder_builds`` keeps it):
-``utils.realscale.ensure_realscale_bundle`` then builds the very bundle the
-card built (its weights come from a fixed seed, its goldens from the port's
-fp64 CPU forward), in ``DIR``. For each selftest of phase 17 with INT8
-weights (fp32 ``--int8-dynamic``, bf16 ``--int8``, bf16 ``--int8-dynamic``)
-and for bf16 alone: the JAX package's max |logit delta| against the goldens
-(its forward on the golden records, jitted as its engine runs it; its own
-``selftest`` inverts probabilities and cannot read these logits) and its
-``selftest`` F1 gate (256 texts, its default causal route); with
-``--port-cpu``, the port's ``cli selftest`` of the same flags on the CPU.
-Prints one JSON line per variant.
+The tokenizer the card's host trained must be in ``DIR/torch/``
+(``tokenizer.json`` for ``base``, ``<variant>/tokenizer.json`` for qwen
+and llama; the root of ``chip_smoke.start_decoder_builds`` keeps the
+latter): ``utils.realscale.ensure_realscale_bundle`` then builds the very
+bundle the card built (its weights come from a fixed seed, its goldens from
+the port's CPU forward, fp32 for ``base``, fp64 for a decoder), in
+``DIR``. For each selftest with INT8 weights (fp32 ``--int8-dynamic``, bf16
+``--int8``, bf16 ``--int8-dynamic``) and for bf16 alone: the JAX package's
+max |logit delta| against the goldens (its forward on the golden records,
+jitted as its engine runs it; its own ``selftest`` inverts probabilities
+and cannot read a decoder's logits) and its ``selftest`` F1 gate (256
+texts; a decoder on its default causal route); with ``--port-cpu``, the
+port's ``cli selftest`` of the same flags on the CPU. Prints one JSON line
+per variant. ``--layers L``: the artifact's configuration at depth L, its
+seed-0 weights of that depth (``write_bundle`` as
+``ensure_realscale_bundle`` calls it, in ``DIR/torch/<variant>-<L>/``; the
+tokenizer is trained into ``DIR/torch`` where it is not there), for a host
+that may not run the whole model.
 
 Needs JAX, ``tokenizers`` and the JAX package: it runs where the tests run,
-never on the card. A qwen or llama bundle takes 7-9 GB of disk and a few
-minutes per F1 gate on 8 CPU cores.
+never on the card. The base bundle takes 1.3 GB of disk, a qwen or llama
+bundle 7-9 GB and a few minutes per F1 gate on 8 CPU cores: full-size
+models, to be run on a host that may hold them.
 """
 
 from __future__ import annotations
@@ -83,6 +91,28 @@ def jax_readings(bundle: str, dtype: str, quant_mode: str) -> dict:
     return out
 
 
+def cut_bundle(root: str, variant: str, layers: int) -> str:
+    """``variant``'s real-scale bundle at depth ``layers``: its tokenizer,
+    configuration and seed, built once into
+    ``DIR/torch/<variant>-<layers>/bundle``."""
+    from gliclass.c_tpu_torch.config import GLiClassConfig
+    from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+    from gliclass.c_tpu_torch.utils import realscale as R
+
+    vocab, tok_rel, bb, name, hidden = R.variant_spec(variant)
+    tok_path = os.path.join(R.realscale_root(root), tok_rel)
+    if not os.path.exists(tok_path):
+        R.build_realscale_tokenizer(tok_path, vocab_size=vocab, max_mb=96 if variant == "base" else 160)
+    bundle = os.path.join(R.realscale_root(root), f"{variant}-{layers}", "bundle")
+    if not os.path.exists(os.path.join(bundle, "goldens.json")):
+        tok = PromptTokenizer.from_file(tok_path)
+        cfg = GLiClassConfig(original_model_name=name, hidden_size=hidden, prompt_first=True,
+                             class_token_index=tok.label_token_id, text_token_index=tok.sep_token_id,
+                             backbone=dataclasses.replace(bb, num_hidden_layers=layers))
+        R.write_bundle(bundle, cfg, tok)
+    return bundle
+
+
 def port_cpu_selftest(bundle: str, flags: list) -> list:
     from gliclass.c_tpu_torch.cli import main
 
@@ -95,8 +125,9 @@ def port_cpu_selftest(bundle: str, flags: list) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True, help="cache root holding torch/<variant>/tokenizer.json")
-    ap.add_argument("--variant", nargs="+", default=["qwen", "llama"], choices=["qwen", "llama"])
+    ap.add_argument("--variant", nargs="+", default=["qwen", "llama"], choices=["base", "qwen", "llama"])
     ap.add_argument("--port-cpu", action="store_true", help="also the port's cli selftest on the CPU")
+    ap.add_argument("--layers", type=int, default=None, help="the artifact's configuration at depth L")
     args = ap.parse_args()
 
     import jax
@@ -105,8 +136,11 @@ def main() -> int:
     from gliclass.c_tpu_torch.utils import realscale as R
 
     for variant in args.variant:
-        bundle = R.ensure_realscale_bundle(root=args.root, variant=variant)
-        rec = {"variant": variant, "tokenizer_sha256": R.hashlib.sha256(
+        if args.layers is None:
+            bundle = R.ensure_realscale_bundle(root=args.root, variant=variant)
+        else:
+            bundle = cut_bundle(args.root, variant, args.layers)
+        rec = {"variant": variant, "layers": args.layers, "tokenizer_sha256": R.hashlib.sha256(
             open(os.path.join(bundle, "tokenizer.json"), "rb").read()).hexdigest(), "selftests": []}
         for flags, dtype, quant_mode in MODES:
             t0 = time.perf_counter()

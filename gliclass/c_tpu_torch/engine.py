@@ -42,12 +42,14 @@ import torch
 from .config import GLiClassConfig, RuntimeConfig
 from .convert.params import params_from_numpy
 from .models.gliclass import gliclass_forward, gliclass_probs
+from .ops import fused_attention, fused_ffn
 from .ops.fused_ffn import add_nk_weights
 from .ops.layers import act_quant
 from .parallel.collectives import all_gather_rows, broadcast, model_parallel, seq_parallel
 from .parallel.mesh import Mesh, make_mesh, single_device_mesh
 from .parallel.sharding import apply_plan, shard_plan
 from .tokenization import TokenizedBatch
+from .utils import metrics
 
 # fp32 matmuls and convolutions run in full fp32 on the card (TF32 would keep
 # about three decimal digits and break fp32 parity with the reference).
@@ -200,11 +202,26 @@ class InferenceEngine:
 
     def _step(self, ids: np.ndarray, mask: np.ndarray, max_labels: int, dev_inputs=None) -> torch.Tensor:
         """One forward of host arrays ``ids``/``mask`` [B, S] (``dev_inputs``:
-        them on the device already); as the leader, broadcast first."""
-        with self._lock:
+        them on the device already); as the leader, broadcast first. With
+        the recorder on, a ``forward`` span around all of it: the shape, the
+        real rows and their tokens (the mask's count; a padded row holds
+        one pad token) and the K1 and K2 launches it made."""
+        rec = metrics.RECORDER
+        if rec is None:
+            with self._lock:
+                if self._leading:
+                    self._send(OP_FORWARD, ids, mask, max_labels)
+                return self._forward(*(dev_inputs or self._device_inputs(ids, mask)), max_labels)
+        per_row = np.asarray(mask).sum(axis=1)
+        real = per_row > 1
+        k1, k2 = fused_attention.launches, fused_ffn.launches
+        with rec.span("forward", rows=int(ids.shape[0]), seq=int(ids.shape[1]), labels=int(max_labels),
+                      real_rows=int(real.sum()), real_tokens=int(per_row[real].sum())) as sp, self._lock:
             if self._leading:
                 self._send(OP_FORWARD, ids, mask, max_labels)
-            return self._forward(*(dev_inputs or self._device_inputs(ids, mask)), max_labels)
+            out = self._forward(*(dev_inputs or self._device_inputs(ids, mask)), max_labels)
+            sp.attrs.update(k1=fused_attention.launches - k1, k2=fused_ffn.launches - k2)
+        return out
 
     # ------------------------------------------------------------------
     # Lockstep serving over a multi-rank mesh

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.collectives import all_reduce_max, all_reduce_sum, group_size, reduce_from_model
+from ..utils import metrics
 
 Params = dict[str, Any]
 
@@ -90,16 +91,25 @@ def linear(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None,
 
 def _linear_int8(p: Params, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """INT8 dense layer: w8a8 inside :func:`act_quant` (not in fp32), else
-    the weight-only INT8 matmul kernel with the bias fused."""
+    the weight-only INT8 matmul kernel with the bias fused. With the
+    recorder on, the w8a8 branch (quantise, product, scales, bias, cast) is
+    a ``w8a8_linear`` span with its product's (M, K, N)."""
     from .int8_matmul import int8_matmul
 
     dtype = compute_dtype or x.dtype
     b = p.get("b")
     if act_quant_enabled() and dtype != torch.float32:
-        y = _linear_w8a8(p, x)
-        if b is not None:
-            y = y + b.to(dtype)
-        return y.to(dtype)
+        rec = metrics.RECORDER
+        sp = None if rec is None else rec.open(
+            "w8a8_linear", m=x.numel() // x.shape[-1], k=x.shape[-1], n=p["w_q"].shape[1])
+        try:
+            y = _linear_w8a8(p, x)
+            if b is not None:
+                y = y + b.to(dtype)
+            return y.to(dtype)
+        finally:
+            if sp is not None:
+                rec.close(sp)
     return int8_matmul(x.to(dtype), p["w_q"], p["scale"], None if b is None else b.float())
 
 

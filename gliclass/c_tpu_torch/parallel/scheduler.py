@@ -32,6 +32,8 @@ from ..config import RuntimeConfig
 from ..engine import InferenceEngine
 from ..prompting import pack_prompt
 from ..tokenization import AffixEncoder, PromptTokenizer, TokenizedBatch
+from ..utils import metrics
+from ..utils.metrics import StageTimer
 
 
 @dataclass
@@ -315,14 +317,15 @@ def plan_and_run_overlapped(
 
     Same results as plan_batches + run_planned (same bucketing, demux and
     one-retry-then-isolate failure handling)."""
-    from ..utils.metrics import StageTimer
-
     bs = runtime.batch_size
     accum: dict[tuple[int, int], list[tuple[int, np.ndarray, int]]] = {}
     ready: dict[tuple[int, int], list[PlannedBatch]] = {}
     in_flight: list[_InFlight] = []
     out = np.zeros((num_requests, max_label_count), dtype=np.float32)
     timer = timer if timer is not None else StageTimer()
+    # The producer thread's tokenize spans hang under this call's span.
+    rec = metrics.RECORDER
+    parent = None if rec is None else rec.current()
 
     def make_pb(key: tuple[int, int], idxs_rows: list[tuple[int, np.ndarray, int]]):
         sb, lb = key
@@ -384,9 +387,10 @@ def plan_and_run_overlapped(
 
         def producer():
             try:
-                for item in sync_chunks():
-                    if not put(item):
-                        return
+                with metrics.adopted(parent):
+                    for item in sync_chunks():
+                        if not put(item):
+                            return
                 put(None)
             except BaseException as e:  # surfaced in the consumer
                 put(e)
@@ -449,6 +453,11 @@ class _Request:
     labels: tuple[str, ...]
     prompt_first: bool
     future: Future = field(default_factory=Future)
+    # With the recorder on: the submitting thread's open span (the HTTP
+    # request's, which holds its id), the submit time, and the round's id.
+    span: Any = None
+    t_submit: int = 0
+    round_id: int = 0
 
     @property
     def num_labels(self) -> int:
@@ -560,6 +569,9 @@ class StreamingScheduler:
         if not labels or not all(isinstance(l, str) for l in labels):
             raise ValueError("labels must be a non-empty sequence of strings")
         req = _Request(text, labels, bool(prompt_first))
+        rec = metrics.RECORDER
+        if rec is not None:
+            req.span, req.t_submit = rec.current(), time.perf_counter_ns()
         with self._submit_lock:
             if not self._running:
                 raise SchedulerClosed("scheduler is closed")
@@ -629,8 +641,9 @@ class StreamingScheduler:
                 reqs = self._collect()
                 if not reqs:
                     break
+                rec = metrics.RECORDER
                 try:
-                    kept, enc = self._encode_round(reqs)
+                    kept, enc = self._encode_round(reqs) if rec is None else self._encode_traced(rec, reqs)
                     if kept:
                         self._plan_q.put((kept, enc))
                 except Exception as e:  # round-wide fault: keep the loop
@@ -638,6 +651,18 @@ class StreamingScheduler:
                         _resolve(r.future, error=e)
         finally:
             self._plan_q.put(None)
+
+    def _encode_traced(self, rec, reqs: "list[_Request]"):
+        """:meth:`_encode_round` with the recorder on: the round gets an id,
+        each request a ``queue`` span (submit to collection, under the
+        submitting thread's span), and the encode a ``round_tokenize`` span."""
+        rnd, t = rec.new_id(), time.perf_counter_ns()
+        for r in reqs:
+            r.round_id = rnd
+            if r.t_submit:
+                rec.add("queue", r.t_submit, t, parent=r.span, ids={"round": rnd})
+        with rec.span("round_tokenize", {"round": rnd}, texts=len(reqs), requests=len({id(r.span) for r in reqs})):
+            return self._encode_round(reqs)
 
     def _affix_encoder(self, labels: tuple, prompt_first: bool, sample_text: str) -> AffixEncoder:
         """The cached AffixEncoder of a label set, least recently used out."""
@@ -710,20 +735,29 @@ class StreamingScheduler:
                 if item is None:
                     break
                 reqs, enc = item
+                rec = metrics.RECORDER
                 try:
-                    planned = plan_from_encoded(
-                        self.tokenizer, enc, [r.num_labels for r in reqs], self.runtime
-                    )
-                    maxw = max(r.num_labels for r in reqs)
-                    failures: list[BatchFailure] = []
-                    out = np.zeros((len(reqs), maxw), dtype=np.float32)
-                    in_flight = dispatch_planned(self.engine, planned, out, maxw, failures)
-                    self._drain_q.put((reqs, out, maxw, failures, in_flight))
+                    if rec is None:
+                        work = self._dispatch_round(reqs, enc)
+                    else:
+                        with rec.span("dispatch", {"round": reqs[0].round_id}, texts=len(reqs)) as sp:
+                            work = self._dispatch_round(reqs, enc)
+                            sp.attrs["forwards"] = sum(len(fl.pbs) for fl in work[-1])
+                    self._drain_q.put(work)
                 except Exception as e:  # fail this round, keep the loop
                     for r in reqs:
                         _resolve(r.future, error=e)
         finally:
             self._drain_q.put(None)
+
+    def _dispatch_round(self, reqs: "list[_Request]", enc: TokenizedBatch) -> tuple:
+        """Bucket, assemble and launch one round; returns the drainer's item."""
+        planned = plan_from_encoded(self.tokenizer, enc, [r.num_labels for r in reqs], self.runtime)
+        maxw = max(r.num_labels for r in reqs)
+        failures: list[BatchFailure] = []
+        out = np.zeros((len(reqs), maxw), dtype=np.float32)
+        in_flight = dispatch_planned(self.engine, planned, out, maxw, failures)
+        return reqs, out, maxw, failures, in_flight
 
     def _drain_loop(self):
         """Stage 3: wait for each round's results and fulfil its futures
@@ -734,6 +768,9 @@ class StreamingScheduler:
             if item is None:
                 break
             reqs, out, maxw, failures, in_flight = item
+            rec = metrics.RECORDER
+            sp = None if rec is None else rec.open(
+                "drain", {"round": reqs[0].round_id}, forwards=sum(len(fl.pbs) for fl in in_flight))
             try:
                 _drain_in_flight(self.engine, in_flight, out, maxw, failures)
                 failed = {i: f.error for f in failures for i in f.indices}
@@ -745,3 +782,6 @@ class StreamingScheduler:
             except Exception as e:  # fail every request of the round
                 for r in reqs:
                     _resolve(r.future, error=e)
+            finally:
+                if sp is not None:
+                    rec.close(sp)

@@ -25,6 +25,7 @@ from .parallel.scheduler import plan_and_run_overlapped, plan_batches, run_plann
 from .postprocess import TextResult, decide_batch, format_report
 from .prompting import pack_prompts
 from .tokenization import AffixEncoder, PromptTokenizer
+from .utils import metrics
 from .utils.metrics import StageTimer
 
 
@@ -176,7 +177,16 @@ class ZeroShotClassificationPipeline:
 
     # ------------------------------------------------------------------
     def classify_job(self, job: ClassificationJob) -> JobOutput:
-        """The reference CLI contract end to end (reference main.c:116-155)."""
+        """The reference CLI contract end to end (reference main.c:116-155).
+        With the recorder on, a ``job`` span (a new job id, the texts) with
+        the ``StageTimer`` stages inside it."""
+        rec = metrics.RECORDER
+        if rec is None:
+            return self._classify_job(job)
+        with rec.span("job", {"job": rec.new_id()}, texts=job.num_texts):
+            return self._classify_job(job)
+
+    def _classify_job(self, job: ClassificationJob) -> JobOutput:
         timer = StageTimer()
         failures: list = []
         probs = self.predict_probs(job.texts, job.labels, job.same_labels, timer, failures=failures)

@@ -45,6 +45,7 @@ from .engine import InferenceEngine
 from .parallel.scheduler import SchedulerClosed, SchedulerOverloaded, StreamingScheduler
 from .postprocess import decide_batch
 from .tokenization import PromptTokenizer
+from .utils import metrics
 
 # A single oversized Content-Length must not allocate unbounded memory.
 MAX_BODY_BYTES = 8 << 20
@@ -59,8 +60,10 @@ class _HTTPServer(ThreadingHTTPServer):
 
 class ServingMetrics:
     """Counters and request-latency percentiles over a ring of recent
-    requests. Latency spans the whole scheduler interaction of a request
-    (submit until every Future resolved): what the caller waits."""
+    requests. A request's latency is that of its ``request`` span: from the
+    handler's entry to the response written (body read and parse, the
+    scheduler, the decision and the JSON written), with the same two
+    timestamps the recorder keeps when it is on."""
 
     _RING = 2048
 
@@ -185,26 +188,43 @@ class GLiClassServer:
                 if self.path != "/classify":
                     self._send(404, {"error": "not found"})
                     return
+                t0 = time.perf_counter_ns()
+                rec = metrics.RECORDER
+                sp = None if rec is None else rec.open("request", {"request": rec.new_id()}, t0=t0)
+                code, payload = self._classify(rec)
+                texts = len(payload["results"]) if code == 200 else 0
+                try:
+                    resp = None if rec is None else rec.open("respond")
+                    self._send(code, payload)
+                finally:
+                    if sp is not None:
+                        rec.close(resp)
+                        rec.close(sp, status=code, texts=texts)
+                    t1 = time.perf_counter_ns() if sp is None else sp.t1
+                    server.metrics.record(texts=texts, error=code != 200,
+                                          latency_s=(t1 - t0) / 1e9 if code == 200 else None)
+
+            def _classify(self, rec) -> tuple[int, dict]:
+                """The status and answer of a POST /classify; never raises."""
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     if n > MAX_BODY_BYTES:
-                        server.metrics.record(error=True)
-                        self._send(413, {"error": f"body exceeds {MAX_BODY_BYTES} bytes"})
-                        return
-                    body = json.loads(self.rfile.read(n) or b"{}")
-                    self._send(200, server.classify(body))
+                        return 413, {"error": f"body exceeds {MAX_BODY_BYTES} bytes"}
+                    sp = None if rec is None else rec.open("parse")
+                    try:
+                        body = json.loads(self.rfile.read(n) or b"{}")
+                    finally:
+                        if sp is not None:
+                            rec.close(sp)
+                    return 200, server.classify(body)
                 except SchedulerOverloaded as e:  # backpressure: shed load
-                    server.metrics.record(error=True)
-                    self._send(429, {"error": str(e)})
+                    return 429, {"error": str(e)}
                 except SchedulerClosed:
-                    server.metrics.record(error=True)
-                    self._send(503, {"error": "server shutting down"})
+                    return 503, {"error": "server shutting down"}
                 except ValueError as e:
-                    server.metrics.record(error=True)
-                    self._send(400, {"error": str(e)})
+                    return 400, {"error": str(e)}
                 except Exception as e:  # engine failure: 500, keep serving
-                    server.metrics.record(error=True)
-                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                    return 500, {"error": f"{type(e).__name__}: {e}"}
 
         self.httpd = _HTTPServer((host, port), Handler)
         self.port = self.httpd.server_address[1]
@@ -212,7 +232,6 @@ class GLiClassServer:
 
     # ------------------------------------------------------------------
     def classify(self, body: dict) -> dict:
-        t_req = time.perf_counter()
         texts, labels, same_labels, ctype, threshold = _parse_classify(body)
         counts = [len(labels[0]) if same_labels else len(labels[i]) for i in range(len(texts))]
         if max(counts) > self.max_num_classes:
@@ -233,7 +252,6 @@ class GLiClassServer:
             self.default_threshold if threshold is None else threshold,
             num_valid=counts, use_native=self.runtime.use_native_host_ops,
         )
-        self.metrics.record(texts=len(texts), latency_s=time.perf_counter() - t_req)
         return {"results": [r.to_dict() for r in results]}
 
     # ------------------------------------------------------------------

@@ -34,6 +34,7 @@ import numpy as np
 
 from .prompting import LABEL_TAG, SEP_TAG
 from .tokenizer import Tokenizer
+from .utils import metrics
 
 # Below this many rows the python fill loop wins (the flat-list build
 # dominates the native call); above it the threaded native fill takes over.
@@ -91,8 +92,18 @@ class PromptTokenizer:
 
         ``pad_to=None`` reproduces the reference's pad-to-batch-max behaviour
         (reference src/tokenizer.c:44-54) for parity tests; production passes a
-        bucket size for shape stability.
+        bucket size for shape stability. With the recorder on, a ``tokenize``
+        span with the texts and their tokens.
         """
+        rec = metrics.RECORDER
+        if rec is None:
+            return self._encode(prompts, max_length, pad_to)
+        with rec.span("tokenize", texts=len(prompts)) as sp:
+            out = self._encode(prompts, max_length, pad_to)
+            sp.attrs["tokens"] = int(out.lengths.sum())
+        return out
+
+    def _encode(self, prompts: Sequence[str], max_length: int, pad_to: int | None) -> TokenizedBatch:
         encs = self._tok.encode_batch(list(prompts), add_special_tokens=True)
         lengths = np.array(
             [min(len(e.ids), max_length) for e in encs], dtype=np.int32
@@ -309,7 +320,8 @@ class AffixEncoder:
         fallback_prompts: Sequence[str] | None = None,
     ) -> TokenizedBatch:
         """Composed encode; ``fallback_prompts`` (full packed prompts) are
-        used when the exactness check failed at construction."""
+        used when the exactness check failed at construction. With the
+        recorder on, a ``tokenize`` span with the texts and their tokens."""
         if not self.exact:
             if fallback_prompts is None:
                 raise ValueError(
@@ -317,6 +329,15 @@ class AffixEncoder:
                     "fallback_prompts given"
                 )
             return self.tok.encode_batch(fallback_prompts, max_length, pad_to)
+        rec = metrics.RECORDER
+        if rec is None:
+            return self._compose(texts, max_length, pad_to)
+        with rec.span("tokenize", texts=len(texts)) as sp:
+            out = self._compose(texts, max_length, pad_to)
+            sp.attrs["tokens"] = int(out.lengths.sum())
+        return out
+
+    def _compose(self, texts: Sequence[str], max_length: int, pad_to: int | None) -> TokenizedBatch:
         t = self.tok._tok
         encs = t.encode_batch(list(texts), add_special_tokens=False)
         n_fixed = len(self.bos) + len(self.pre) + len(self.suf) + len(self.eos)

@@ -107,7 +107,7 @@ def _add_runtime_flags(p: argparse.ArgumentParser):
     p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (dp x sp x tp launched ranks)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (dp x sp x tp launched ranks)")
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (dp x sp x tp launched ranks)")
-    p.add_argument("--workers", type=int, default=8, help="tokenizer threads")
+    p.add_argument("--workers", type=int, default=8, help="tokenizer worker processes for large jobs")
 
 
 def cmd_run(args, device=None) -> int:

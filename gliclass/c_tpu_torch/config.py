@@ -71,7 +71,9 @@ class RuntimeConfig:
     dp_size: int = 1
     tp_size: int = 1
     sp_size: int = 1
-    # Tokenization host-parallelism.
+    # Tokenizer worker processes for large jobs (tokenization.PromptTokenizer
+    # .pool): at most this many, and never more than the host's cores allow
+    # (effective_tokenizer_workers).
     tokenizer_workers: int = 8
     # Overlap tokenization with device execution (scheduler.plan_and_run_
     # overlapped): tokenize on a producer thread while this thread assembles
@@ -83,13 +85,14 @@ class RuntimeConfig:
         return self.overlap_tokenize != "off"
 
     def effective_tokenizer_workers(self) -> int:
-        """Tokenizer threads for the streamed (overlapped) plan: on hosts with
-        few cores, worker threads starve the dispatching thread — cap workers
-        so at least one core stays free for dispatch."""
+        """Tokenizer worker processes: ``tokenizer_workers``, capped so two
+        of the cores this process may run on stay free for the dispatching
+        thread and the CUDA runtime's own threads; at least one."""
         import os
 
-        cpus = os.cpu_count() or 1
-        return self.tokenizer_workers if cpus >= 4 else 1
+        cpus = len(os.sched_getaffinity(0))
+        return max(1, min(self.tokenizer_workers, cpus - 2))
+
     # Use the native C++ host ops (prompt packing / batch assembly) when built.
     use_native_host_ops: bool = True
     # Fuse q/k/v projections into one wide matmul at engine load

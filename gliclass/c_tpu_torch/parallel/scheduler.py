@@ -20,10 +20,10 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import Any, Callable, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -31,9 +31,12 @@ import torch
 from ..config import RuntimeConfig
 from ..engine import InferenceEngine
 from ..prompting import pack_prompt
-from ..tokenization import AffixEncoder, PromptTokenizer, TokenizedBatch
+from ..tokenization import POOL_MIN_TEXTS, AffixEncoder, PromptTokenizer, TokenizedBatch
 from ..utils import metrics
 from ..utils.metrics import StageTimer
+
+if TYPE_CHECKING:
+    from ..tokenize_pool import TokenizerPool
 
 
 @dataclass
@@ -53,7 +56,7 @@ def plan_batches(
     most ``runtime.batch_size``; each batch carries its original indices."""
     enc = tokenizer.encode_batch_parallel(
         prompts, max_length=runtime.max_length, pad_to=None,
-        chunk_size=128, workers=runtime.tokenizer_workers,
+        chunk_size=128, workers=runtime.effective_tokenizer_workers(),
     )
     return plan_from_encoded(tokenizer, enc, label_counts, runtime)
 
@@ -291,29 +294,39 @@ def _drain_in_flight(
 def plan_and_run_overlapped(
     engine: InferenceEngine,
     tokenizer: PromptTokenizer,
-    prompts: Sequence[str] | None,
     label_counts: Sequence[int],
     runtime: RuntimeConfig,
     num_requests: int,
     max_label_count: int,
+    encode_chunk_fn: Callable[[int, int], TokenizedBatch],
+    submit_chunk_fn: "Callable[[TokenizerPool, int, int], Future] | None" = None,
     chunk: int = 256,
     failures: list[BatchFailure] | None = None,
     timer=None,
-    pack_fn: Callable[[int, int], Sequence[str]] | None = None,
-    encode_chunk_fn: Callable[[int, int], TokenizedBatch] | None = None,
 ) -> np.ndarray:
     """Tokenize-and-dispatch pipeline: bucketed batches go to the device as
-    soon as they fill, while a producer thread tokenizes the next chunk.
+    soon as they fill, while a producer thread brings the next chunk.
 
-    ``pack_fn(lo, hi)``: lazy prompt packer (``prompts`` may then be None);
-    ``encode_chunk_fn(lo, hi)``: replaces pack+tokenize for a chunk (the
-    same-labels AffixEncoder path) and takes precedence.
+    ``encode_chunk_fn(lo, hi)``: requests lo..hi encoded in this process;
+    ``submit_chunk_fn(pool, lo, hi)``: the same encode as a task of the
+    tokenizer's worker pool. A call of at least
+    :data:`~..tokenization.POOL_MIN_TEXTS` requests whose tokenizer has a
+    pool (``PromptTokenizer.pool``: the port's own reader) encodes there,
+    ``runtime.effective_tokenizer_workers()`` processes off the interpreter
+    lock that this thread's launches need: chunks of a batch over the
+    workers (at least 16 requests), so that they fill a job's first batch
+    together, at most ``2 * workers`` of them outstanding, consumed in
+    order. Smaller calls encode on the producer
+    thread in chunks of 64, 128, then ``chunk``. Either way rows fill each
+    (seq, labels) bucket in request order, so every forward holds the same
+    rows.
 
     Every arrival dispatches all ready batches of its shape key as one
     launch (capped at ``_MAX_STACK``); the partial tail batch of each key
     launches alone at the end. ``timer`` receives the host-side attribution
     (``h_tokenize`` blocking tokenize waits, ``h_dispatch`` assembly and
-    launch, ``h_drain`` device wait, transfer and demux).
+    launch, ``h_drain`` device wait, transfer and demux) and counts the
+    chunks (``tokenize_chunks_pooled``, ``tokenize_chunks_inline``).
 
     Same results as plan_batches + run_planned (same bucketing, demux and
     one-retry-then-isolate failure handling)."""
@@ -323,6 +336,10 @@ def plan_and_run_overlapped(
     in_flight: list[_InFlight] = []
     out = np.zeros((num_requests, max_label_count), dtype=np.float32)
     timer = timer if timer is not None else StageTimer()
+    pool = None
+    if submit_chunk_fn is not None and num_requests >= POOL_MIN_TEXTS:
+        pool = tokenizer.pool(runtime.effective_tokenizer_workers())
+    chunk_count = "tokenize_chunks_inline" if pool is None else "tokenize_chunks_pooled"
     # The producer thread's tokenize spans hang under this call's span.
     rec = metrics.RECORDER
     parent = None if rec is None else rec.current()
@@ -355,19 +372,35 @@ def plan_and_run_overlapped(
         # Ramped chunk sizes: a small first chunk reaches the device fast,
         # later chunks grow to the full ``chunk``.
         sizes = [s for s in (64, 128) if s < chunk] or [chunk]
-        total = num_requests if (pack_fn is not None or encode_chunk_fn is not None) else len(prompts)
         c0 = 0
-        while c0 < total:
+        while c0 < num_requests:
             n = sizes.pop(0) if sizes else chunk
-            hi = min(c0 + n, total)
-            if encode_chunk_fn is not None:
-                yield c0, encode_chunk_fn(c0, hi)
-            else:
-                chunk_prompts = pack_fn(c0, hi) if pack_fn is not None else prompts[c0:hi]
-                yield c0, tokenizer.encode_batch(
-                    chunk_prompts, max_length=runtime.max_length, pad_to=None
-                )
+            yield c0, encode_chunk_fn(c0, min(c0 + n, num_requests))
             c0 += n
+
+    def pooled_chunks():
+        size = min(chunk, max(16, -(-bs // pool.workers)))
+        bounds = deque((lo, min(lo + size, num_requests)) for lo in range(0, num_requests, size))
+        pending: deque = deque()
+        try:
+            while bounds or pending:
+                while bounds and len(pending) < 2 * pool.workers:
+                    lo, hi = bounds.popleft()
+                    pending.append((lo, hi, submit_chunk_fn(pool, lo, hi)))
+                lo, hi, fut = pending.popleft()
+                rec = metrics.RECORDER
+                if rec is None:
+                    enc, _ = pool.result(fut)
+                else:
+                    # The span is this thread's wait; the encode's own time
+                    # is the worker's.
+                    with rec.span("tokenize", texts=hi - lo, pooled=1) as sp:
+                        enc, worker_ms = pool.result(fut)
+                        sp.attrs.update(tokens=int(enc.lengths.sum()), worker_ms=round(worker_ms, 3))
+                yield lo, enc
+        finally:
+            for _, _, fut in pending:
+                fut.cancel()
 
     def encoded_chunks():
         """(chunk start, encoded chunk) stream from a producer thread. If the
@@ -388,7 +421,7 @@ def plan_and_run_overlapped(
         def producer():
             try:
                 with metrics.adopted(parent):
-                    for item in sync_chunks():
+                    for item in sync_chunks() if pool is None else pooled_chunks():
                         if not put(item):
                             return
                 put(None)
@@ -409,27 +442,33 @@ def plan_and_run_overlapped(
         finally:
             stop.set()
 
-    chunks = iter(encoded_chunks())
-    while True:
-        with timer.stage("h_tokenize"):
-            item = next(chunks, None)
-        if item is None:
-            break
-        c0, enc = item
-        touched = set()
-        for j in range(len(enc.lengths)):
-            i = c0 + j
-            L = int(enc.lengths[j])
-            key = (runtime.bucket_for_seq(L), runtime.bucket_for_labels(label_counts[i]))
-            accum.setdefault(key, []).append((i, enc.input_ids[j], min(L, key[0])))
-            if len(accum[key]) == bs:
-                with timer.stage("h_dispatch"):
-                    ready.setdefault(key, []).append(make_pb(key, accum.pop(key)))
-                touched.add(key)
-        # Batches filled within one chunk stack together; batches of
-        # different chunks never wait on each other.
-        for key in sorted(touched):
-            dispatch_ready(key)
+    chunks = encoded_chunks()
+    try:
+        while True:
+            with timer.stage("h_tokenize"):
+                item = next(chunks, None)
+            if item is None:
+                break
+            c0, enc = item
+            timer.add_count(chunk_count, 1)
+            touched = set()
+            for j in range(len(enc.lengths)):
+                i = c0 + j
+                L = int(enc.lengths[j])
+                key = (runtime.bucket_for_seq(L), runtime.bucket_for_labels(label_counts[i]))
+                accum.setdefault(key, []).append((i, enc.input_ids[j], min(L, key[0])))
+                if len(accum[key]) == bs:
+                    with timer.stage("h_dispatch"):
+                        ready.setdefault(key, []).append(make_pb(key, accum.pop(key)))
+                    touched.add(key)
+            # Batches filled within one chunk stack together; batches of
+            # different chunks never wait on each other.
+            for key in sorted(touched):
+                dispatch_ready(key)
+    finally:
+        # Stops the producer (and cancels its pool tasks) when this loop
+        # raises.
+        chunks.close()
     for key in sorted(ready):
         dispatch_ready(key)
     for key in sorted(accum):

@@ -111,30 +111,35 @@ class ZeroShotClassificationPipeline:
                 stacklevel=3,
             )
         if self.runtime.overlap_enabled():
-            pf = self.prompt_first
-
-            def pack_chunk(lo: int, hi: int):
-                return pack_prompts(
-                    texts[lo:hi], labels if same_labels else labels[lo:hi], same_labels, pf
-                )
-
-            encode_chunk_fn = None
+            pf, L = self.prompt_first, self.runtime.max_length
+            affix = None
             if same_labels and texts:
                 # The shared label block is encoded once per job; composition
                 # is verified against a full-string encode and the packed path
                 # is kept when the tokenizer breaks the identity.
-                enc = AffixEncoder.for_labels(
-                    self.tokenizer, labels[0], pf, self.runtime.max_length, sample_text=texts[0]
-                )
-                if enc.exact:
-                    def encode_chunk_fn(lo: int, hi: int, _enc=enc):
-                        return _enc.encode_batch(texts[lo:hi], self.runtime.max_length)
+                affix = AffixEncoder.for_labels(self.tokenizer, labels[0], pf, L, sample_text=texts[0])
+            if affix is not None and affix.exact:
+                def encode_chunk_fn(lo: int, hi: int):
+                    return affix.encode_batch(texts[lo:hi], L)
+
+                def submit_chunk_fn(pool, lo: int, hi: int):
+                    return affix.submit(pool, texts[lo:hi], L)
+            else:
+                def pack_chunk(lo: int, hi: int):
+                    return pack_prompts(
+                        texts[lo:hi], labels if same_labels else labels[lo:hi], same_labels, pf
+                    )
+
+                def encode_chunk_fn(lo: int, hi: int):
+                    return self.tokenizer.encode_batch(pack_chunk(lo, hi), L)
+
+                def submit_chunk_fn(pool, lo: int, hi: int):
+                    return self.tokenizer.submit(pool, pack_chunk(lo, hi), L)
 
             with timer.stage("tokenize_device"):
                 probs = plan_and_run_overlapped(
-                    self.engine, self.tokenizer, None, counts, self.runtime,
-                    len(texts), max(counts), failures=failures, timer=timer,
-                    pack_fn=pack_chunk, encode_chunk_fn=encode_chunk_fn,
+                    self.engine, self.tokenizer, counts, self.runtime, len(texts), max(counts),
+                    encode_chunk_fn, submit_chunk_fn, failures=failures, timer=timer,
                 )
         else:
             with timer.stage("pack"):

@@ -25,10 +25,11 @@ from the tokenizer when available and fall back to 0.
 
 from __future__ import annotations
 
-import os
-from concurrent.futures import ThreadPoolExecutor
+import threading
+import weakref
+from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
@@ -36,12 +37,21 @@ from .prompting import LABEL_TAG, SEP_TAG
 from .tokenizer import Tokenizer
 from .utils import metrics
 
+if TYPE_CHECKING:
+    from .tokenize_pool import TokenizerPool
+
 # Below this many rows the python fill loop wins (the flat-list build
 # dominates the native call); above it the threaded native fill takes over.
 # Chunked tokenization
 # (encode_batch_parallel) stays below this, so the native fill engages only
 # for large direct encode_batch calls (eval/golden runs).
 _NATIVE_PAD_MIN_ROWS = 4096
+
+# A call of at least this many texts encodes its chunks in the tokenizer's
+# worker processes (PromptTokenizer.pool); a smaller one in the calling
+# thread, where a pool's start and the pickling would cost more than the
+# encodes it takes off the interpreter lock.
+POOL_MIN_TEXTS = 256
 
 
 @dataclass(frozen=True)
@@ -76,11 +86,39 @@ class PromptTokenizer:
         # Special-token ids used by the GLiClass head to locate label slots.
         self.label_token_id = tokenizer.token_to_id(LABEL_TAG)
         self.sep_token_id = tokenizer.token_to_id(SEP_TAG)
+        self._pool: TokenizerPool | None = None
+        self._pool_finalizer: weakref.finalize | None = None
+        self._pool_lock = threading.Lock()
 
     @classmethod
     def from_file(cls, path: str, pad_token_id: int | None = None) -> "PromptTokenizer":
         """The port's reader of ``tokenizer.json``, on every device."""
         return cls(Tokenizer.from_file(path), pad_token_id=pad_token_id)
+
+    def pool(self, workers: int) -> "TokenizerPool | None":
+        """This tokenizer's pool of ``workers`` worker processes
+        (:mod:`.tokenize_pool`), started on the first call and again after
+        it broke or to change its size; None when the tokenizer is not the
+        port's reader (a wrapped ``tokenizers.Tokenizer`` releases the
+        interpreter lock itself). The pool is shut down, its workers
+        joined, when this tokenizer is freed or at exit."""
+        if not isinstance(self._tok, Tokenizer):
+            return None
+        with self._pool_lock:
+            if self._pool is None or self._pool.broken or self._pool.workers != workers:
+                from .tokenize_pool import TokenizerPool
+
+                if self._pool_finalizer is not None:
+                    self._pool_finalizer()
+                self._pool = TokenizerPool(self._tok, workers)
+                self._pool_finalizer = weakref.finalize(self, self._pool.close)
+            return self._pool
+
+    def submit(self, pool: "TokenizerPool", prompts: Sequence[str], max_length: int,
+               pad_to: int | None = None) -> Future:
+        """:meth:`encode_batch` of ``prompts`` as a task of ``pool``: read
+        it with ``pool.result``."""
+        return pool.submit(encode_prompts, list(prompts), max_length, self.pad_token_id, pad_to)
 
     def encode_batch(
         self,
@@ -97,49 +135,11 @@ class PromptTokenizer:
         """
         rec = metrics.RECORDER
         if rec is None:
-            return self._encode(prompts, max_length, pad_to)
+            return encode_prompts(self._tok, prompts, max_length, self.pad_token_id, pad_to)
         with rec.span("tokenize", texts=len(prompts)) as sp:
-            out = self._encode(prompts, max_length, pad_to)
+            out = encode_prompts(self._tok, prompts, max_length, self.pad_token_id, pad_to)
             sp.attrs["tokens"] = int(out.lengths.sum())
         return out
-
-    def _encode(self, prompts: Sequence[str], max_length: int, pad_to: int | None) -> TokenizedBatch:
-        encs = self._tok.encode_batch(list(prompts), add_special_tokens=True)
-        lengths = np.array(
-            [min(len(e.ids), max_length) for e in encs], dtype=np.int32
-        )
-        target = int(pad_to) if pad_to is not None else int(lengths.max(initial=1))
-        if lengths.max(initial=0) > target:
-            raise ValueError(
-                f"pad_to={target} is smaller than longest truncated sequence "
-                f"({int(lengths.max())}); pick a larger bucket"
-            )
-        n = len(encs)
-        if n >= _NATIVE_PAD_MIN_ROWS:
-            # Threaded C++ fill (native/host_ops.cpp gct_pad_batch): one flat
-            # int32 array + row offsets in, padded [n, target] ids/mask out.
-            # Falls through to the loop when the library is not built.
-            from . import native_ops
-
-            if native_ops.available():
-                flat: list[int] = []
-                for i, e in enumerate(encs):
-                    flat.extend(e.ids[: lengths[i]])
-                offsets = np.zeros(n + 1, dtype=np.int64)
-                np.cumsum(lengths, out=offsets[1:])
-                out = native_ops.pad_batch_native(
-                    np.asarray(flat, dtype=np.int32), offsets, target,
-                    self.pad_token_id,
-                )
-                if out is not None:
-                    return TokenizedBatch(out[0], out[1], lengths)
-        input_ids = np.full((n, target), self.pad_token_id, dtype=np.int32)
-        attention_mask = np.zeros((n, target), dtype=np.int32)
-        for i, e in enumerate(encs):
-            L = lengths[i]
-            input_ids[i, :L] = e.ids[:L]
-            attention_mask[i, :L] = 1
-        return TokenizedBatch(input_ids, attention_mask, lengths)
 
     def encode_batch_parallel(
         self,
@@ -149,22 +149,25 @@ class PromptTokenizer:
         chunk_size: int = 512,
         workers: int | None = None,
     ) -> TokenizedBatch:
-        """Chunked parallel encode for large jobs (replaces the OpenMP fan-out of
+        """Chunked encode for large jobs (replaces the OpenMP fan-out of
         reference src/parallel_processor.c:25-50 on the host side).
 
-        The pool was chosen for the Rust tokenizer core, which releases the
-        GIL. The port's reader is Python and holds it, so the threads now
-        take turns and gain nothing over one; the chunking and the result
-        are unchanged.
+        At :data:`POOL_MIN_TEXTS` prompts or more the chunks of
+        ``chunk_size`` are encoded in :meth:`pool` (``workers`` processes,
+        by default ``RuntimeConfig().effective_tokenizer_workers()``);
+        smaller calls, and a tokenizer that is not the port's reader, encode
+        in this thread. The result is the same either way.
         """
-        if len(prompts) <= chunk_size:
+        if workers is None:
+            from .config import RuntimeConfig
+
+            workers = RuntimeConfig().effective_tokenizer_workers()
+        pool = self.pool(workers) if len(prompts) >= POOL_MIN_TEXTS else None
+        if pool is None:
             return self.encode_batch(prompts, max_length, pad_to)
-        workers = workers or min(8, os.cpu_count() or 1)
-        chunks = [prompts[i : i + chunk_size] for i in range(0, len(prompts), chunk_size)]
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            parts = list(
-                ex.map(lambda c: self.encode_batch(c, max_length, pad_to), chunks)
-            )
+        futures = [self.submit(pool, prompts[i : i + chunk_size], max_length, pad_to)
+                   for i in range(0, len(prompts), chunk_size)]
+        parts = [pool.result(f)[0] for f in futures]
         if pad_to is None:
             target = max(p.seq_length for p in parts)
             parts = [_repad(p, target, self.pad_token_id) for p in parts]
@@ -173,6 +176,82 @@ class PromptTokenizer:
             np.concatenate([p.attention_mask for p in parts]),
             np.concatenate([p.lengths for p in parts]),
         )
+
+
+def _check_target(lengths: np.ndarray, pad_to: int | None) -> int:
+    target = int(pad_to) if pad_to is not None else int(lengths.max(initial=1))
+    if lengths.max(initial=0) > target:
+        raise ValueError(
+            f"pad_to={target} is smaller than longest truncated sequence "
+            f"({int(lengths.max())}); pick a larger bucket"
+        )
+    return target
+
+
+def encode_prompts(tok, prompts: Sequence[str], max_length: int, pad_id: int,
+                   pad_to: int | None = None) -> TokenizedBatch:
+    """Full prompts through ``tok`` with its special tokens, truncated at
+    ``max_length``, padded with ``pad_id`` to ``pad_to`` (or the batch's
+    longest): :meth:`PromptTokenizer.encode_batch`, in this thread or in a
+    worker of its pool."""
+    encs = tok.encode_batch(list(prompts), add_special_tokens=True)
+    lengths = np.array(
+        [min(len(e.ids), max_length) for e in encs], dtype=np.int32
+    )
+    target = _check_target(lengths, pad_to)
+    n = len(encs)
+    if n >= _NATIVE_PAD_MIN_ROWS:
+        # Threaded C++ fill (native/host_ops.cpp gct_pad_batch): one flat
+        # int32 array + row offsets in, padded [n, target] ids/mask out.
+        # Falls through to the loop when the library is not built.
+        from . import native_ops
+
+        if native_ops.available():
+            flat: list[int] = []
+            for i, e in enumerate(encs):
+                flat.extend(e.ids[: lengths[i]])
+            offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(lengths, out=offsets[1:])
+            out = native_ops.pad_batch_native(
+                np.asarray(flat, dtype=np.int32), offsets, target, pad_id,
+            )
+            if out is not None:
+                return TokenizedBatch(out[0], out[1], lengths)
+    input_ids = np.full((n, target), pad_id, dtype=np.int32)
+    attention_mask = np.zeros((n, target), dtype=np.int32)
+    for i, e in enumerate(encs):
+        L = lengths[i]
+        input_ids[i, :L] = e.ids[:L]
+        attention_mask[i, :L] = 1
+    return TokenizedBatch(input_ids, attention_mask, lengths)
+
+
+def encode_composed(tok, texts: Sequence[str], head: Sequence[int], tail: Sequence[int], max_length: int,
+                    pad_id: int, pad_to: int | None = None) -> TokenizedBatch:
+    """Each text through ``tok`` without special tokens, between the fixed
+    ``head`` and ``tail`` ids, truncated at ``max_length``, padded with
+    ``pad_id`` to ``pad_to`` (or the batch's longest): the
+    :class:`AffixEncoder`'s composed encode, in this thread or in a worker
+    of the tokenizer's pool."""
+    encs = tok.encode_batch(list(texts), add_special_tokens=False)
+    n_fixed = len(head) + len(tail)
+    lengths = np.array(
+        [min(len(e.ids) + n_fixed, max_length) for e in encs],
+        dtype=np.int32,
+    )
+    target = _check_target(lengths, pad_to)
+    n = len(encs)
+    head = np.asarray(head, dtype=np.int32)
+    tail = np.asarray(tail, dtype=np.int32)
+    input_ids = np.full((n, target), pad_id, dtype=np.int32)
+    attention_mask = np.zeros((n, target), dtype=np.int32)
+    for i, e in enumerate(encs):
+        row = np.concatenate(
+            [head, np.asarray(e.ids, dtype=np.int32), tail]
+        )[: lengths[i]]
+        input_ids[i, : len(row)] = row
+        attention_mask[i, : len(row)] = 1
+    return TokenizedBatch(input_ids, attention_mask, lengths)
 
 
 def _repad(batch: TokenizedBatch, target: int, pad_id: int) -> TokenizedBatch:
@@ -261,6 +340,9 @@ class AffixEncoder:
         self.suf = (
             t.encode(suffix, add_special_tokens=False).ids if suffix else []
         )
+        # The fixed ids before and after each text's own.
+        self.head = self.bos + self.pre
+        self.tail = self.suf + self.eos
 
         def composed_ids(text: str) -> list:
             return (
@@ -338,31 +420,17 @@ class AffixEncoder:
         return out
 
     def _compose(self, texts: Sequence[str], max_length: int, pad_to: int | None) -> TokenizedBatch:
-        t = self.tok._tok
-        encs = t.encode_batch(list(texts), add_special_tokens=False)
-        n_fixed = len(self.bos) + len(self.pre) + len(self.suf) + len(self.eos)
-        lengths = np.array(
-            [min(len(e.ids) + n_fixed, max_length) for e in encs],
-            dtype=np.int32,
-        )
-        target = int(pad_to) if pad_to is not None else int(lengths.max(initial=1))
-        if lengths.max(initial=0) > target:
-            raise ValueError(
-                f"pad_to={target} is smaller than longest truncated sequence "
-                f"({int(lengths.max())}); pick a larger bucket"
-            )
-        n = len(encs)
-        head = np.asarray(self.bos + self.pre, dtype=np.int32)
-        tail = np.asarray(self.suf + self.eos, dtype=np.int32)
-        input_ids = np.full((n, target), self.tok.pad_token_id, dtype=np.int32)
-        attention_mask = np.zeros((n, target), dtype=np.int32)
-        for i, e in enumerate(encs):
-            row = np.concatenate(
-                [head, np.asarray(e.ids, dtype=np.int32), tail]
-            )[: lengths[i]]
-            input_ids[i, : len(row)] = row
-            attention_mask[i, : len(row)] = 1
-        return TokenizedBatch(input_ids, attention_mask, lengths)
+        return encode_composed(self.tok._tok, texts, self.head, self.tail, max_length, self.tok.pad_token_id,
+                               pad_to)
+
+    def submit(self, pool: "TokenizerPool", texts: Sequence[str], max_length: int,
+               pad_to: int | None = None) -> Future:
+        """The composed :meth:`encode_batch` of ``texts`` (``exact`` only)
+        as a task of ``pool``: read it with ``pool.result``."""
+        if not self.exact:
+            raise ValueError(f"AffixEncoder inexact ({self._why}): encode the full prompts")
+        return pool.submit(encode_composed, list(texts), self.head, self.tail, max_length, self.tok.pad_token_id,
+                           pad_to)
 
 
 def _find_subseq(hay: list, needle: list) -> int | None:

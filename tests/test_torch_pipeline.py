@@ -246,6 +246,137 @@ def test_pipeline_call_api(bundle_dir, engine, overlap):
                                ref.predict_probs(texts, [["science", "sports"]], True), atol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# The tokenizer's worker pool on the batch plane
+WORDS = ("the quick brown fox jumps over a lazy dog while science and sports news "
+         "run through onnx models café ﬁne why are you running").split()
+
+
+def _job(n: int, same_labels: bool, bad: int | None = None) -> dict:
+    texts = [" ".join(WORDS[(i * 7 + k) % len(WORDS)] for k in range(2 + i % 11)) for i in range(n)]
+    if bad is not None:
+        texts[bad] = 5  # not a str: the encode raises
+    pool = ["science", "sports", "format", "question", "animal", "travel", "news"]
+    labels = [pool[:4]] if same_labels else [pool[: 1 + i % len(pool)] for i in range(n)]
+    return {"texts": texts, "labels": labels, "same_labels": same_labels,
+            "classification_type": "multi-label"}
+
+
+# Batches of 64 rows keep a 300-text job to a few forwards.
+POOL_RT = dict(RT, batch_size=64, tokenizer_workers=2)
+
+
+@pytest.fixture(scope="module")
+def pooled_pipe(bundle_dir):
+    """The tiny CPU engine behind a tokenizer that pools two workers."""
+    pipe = ZeroShotClassificationPipeline.from_bundle(bundle_dir, RuntimeConfig(**POOL_RT), device="cpu")
+    yield pipe
+    if pipe.tokenizer._pool is not None:
+        pipe.tokenizer._pool.close()
+
+
+def _in_thread(monkeypatch):
+    from gliclass.c_tpu_torch import tokenization
+    from gliclass.c_tpu_torch.parallel import scheduler
+
+    for mod in (scheduler, tokenization):
+        monkeypatch.setattr(mod, "POOL_MIN_TEXTS", 10**9)
+
+
+@pytest.mark.parametrize("case", ["shared labels", "per-text labels", "barrier plan"])
+def test_pooled_job_bit_equal_to_in_thread(pooled_pipe, case, monkeypatch):
+    """A job of 300 texts: the same probabilities, bit for bit, whether its
+    chunks are encoded in the pool or in the producer thread (the composed
+    AffixEncoder path, packed prompts, and the barrier plan's
+    ``encode_batch_parallel``); the job's timings count the chunks of each
+    kind, and with the recorder on each pooled ``tokenize`` span carries
+    ``pooled`` and the worker's ms."""
+    from gliclass.c_tpu_torch.utils import metrics
+
+    pipe = pooled_pipe
+    if case == "barrier plan":
+        pipe = ZeroShotClassificationPipeline(pipe.engine, pipe.tokenizer,
+                                              RuntimeConfig(overlap_tokenize="off", **POOL_RT))
+    job = parse_job(_job(300, case == "shared labels"))
+    runs = {}
+    for way in ("pooled", "inline"):
+        if way == "inline":
+            _in_thread(monkeypatch)
+        rec = metrics.start()
+        try:
+            runs[way] = pipe.classify_job(job)
+        finally:
+            metrics.stop()
+        runs[way + " spans"] = [s for s in rec.spans if s.name == "tokenize"]
+    assert pipe.tokenizer._pool is not None and runs["pooled"].failures == []
+    assert np.array_equal(runs["pooled"].probs, runs["inline"].probs)
+    if case != "barrier plan":
+        assert runs["pooled"].timings["tokenize_chunks_pooled"] > 0
+        assert runs["inline"].timings["tokenize_chunks_inline"] > 0
+        assert "tokenize_chunks_inline" not in runs["pooled"].timings
+        assert "tokenize_chunks_pooled" not in runs["inline"].timings
+        pooled, inline = runs["pooled spans"], runs["inline spans"]
+        assert all(s.attrs["pooled"] == 1 and s.attrs["worker_ms"] > 0 for s in pooled)
+        assert not any("pooled" in s.attrs for s in inline)
+        for key in ("texts", "tokens"):
+            assert sum(s.attrs[key] for s in pooled) == sum(s.attrs[key] for s in inline)
+        assert sum(s.attrs["texts"] for s in pooled) == 300
+
+
+def _fresh_pipe(pooled_pipe, bundle_dir):
+    """The module's engine behind a tokenizer of its own (no pool yet)."""
+    tok = PromptTokenizer.from_file(tbundle.tokenizer_path(bundle_dir))
+    return ZeroShotClassificationPipeline(pooled_pipe.engine, tok, RuntimeConfig(**POOL_RT))
+
+
+def test_job_under_pool_size_starts_no_process(pooled_pipe, bundle_dir):
+    import multiprocessing
+
+    pipe = _fresh_pipe(pooled_pipe, bundle_dir)
+    before = {p.pid for p in multiprocessing.active_children()}
+    out = pipe.classify_job(parse_job(_job(255, True)))
+    assert out.timings["tokenize_chunks_inline"] > 0 and "tokenize_chunks_pooled" not in out.timings
+    assert pipe.tokenizer._pool is None
+    assert {p.pid for p in multiprocessing.active_children()} == before
+
+
+@pytest.mark.parametrize("way", ["pooled", "inline"])
+def test_encode_error_reaches_the_job(pooled_pipe, way, monkeypatch):
+    """An encode that raises (a text that is not a str, which
+    ``parse_job`` would refuse) fails the job with its own exception, from a
+    worker as from the producer thread."""
+    if way == "inline":
+        _in_thread(monkeypatch)
+    job = _job(300, True, bad=290)
+    with pytest.raises(TypeError) as err:
+        pooled_pipe.predict_probs(job["texts"], job["labels"], True)
+    with pytest.raises(type(err.value), match=str(err.value)):
+        pooled_pipe.tokenizer.encode_batch([5], 64)
+
+
+def test_killed_worker_fails_the_job_naming_the_pool(pooled_pipe, bundle_dir):
+    """A worker killed between jobs: the next job fails whole with an error
+    that names the pool; the job after it gets a new pool."""
+    import signal
+
+    from gliclass.c_tpu_torch.tokenize_pool import TokenizerPoolBroken
+
+    pipe = _fresh_pipe(pooled_pipe, bundle_dir)
+    pool = pipe.tokenizer.pool(2)
+    futures = [pipe.tokenizer.submit(pool, ["the quick brown fox"] * 4, 64) for _ in range(4)]
+    assert all(pool.result(f)[0].batch_size == 4 for f in futures)
+    victim = next(iter(pool._ex._processes.values()))
+    os.kill(victim.pid, signal.SIGKILL)
+    victim.join(timeout=30)
+    job = parse_job(_job(300, True))
+    with pytest.raises(TokenizerPoolBroken, match=r"tokenizer worker pool \(2 processes\) broke"):
+        pipe.classify_job(job)
+    out = pipe.classify_job(job)
+    assert pipe.tokenizer._pool is not pool and out.timings["tokenize_chunks_pooled"] > 0
+    assert out.failures == [] and out.probs.shape == (300, 4)
+    pipe.tokenizer._pool.close()
+
+
 def test_port_imports_no_jax_and_nothing_of_c_tpu():
     """Import the port and every module of it in a fresh interpreter (the
     serving slice's serving, cli and utils.eval by name, the model-production

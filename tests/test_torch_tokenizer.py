@@ -16,6 +16,7 @@ later versions, where some of them are letters, and Python cannot say what
 they are. Nothing else is left out.
 """
 
+import gc
 import json
 import os
 import random
@@ -39,6 +40,7 @@ from gliclass.c_tpu.tokenization import AffixEncoder as JAffix
 from gliclass.c_tpu.tokenization import PromptTokenizer as JTok
 from gliclass.c_tpu_torch import config as tcfg
 from gliclass.c_tpu_torch.prompting import pack_prompt, pack_prompts
+from gliclass.c_tpu_torch.tokenization import POOL_MIN_TEXTS
 from gliclass.c_tpu_torch.tokenization import AffixEncoder as TAffix
 from gliclass.c_tpu_torch.tokenization import PromptTokenizer as TTok
 from gliclass.c_tpu_torch.tokenizer import Tokenizer
@@ -180,6 +182,103 @@ def test_affix_encoder_equals_jax(name, prompt_first, tokenizers_):
         b = ta.encode_batch(texts, 64, 64, fallback_prompts=prompts)
         np.testing.assert_array_equal(b.input_ids, a.input_ids)
         np.testing.assert_array_equal(b.lengths, a.lengths)
+
+
+# ---------------------------------------------------------------------------
+# The worker pool: a Metaspace/Unigram and a byte-level BPE tokenizer, each
+# with one two-worker pool for the module
+POOLED = ["b_deberta_unigram.json", "a_bytelevel_bpe.json"]
+
+
+@pytest.fixture(scope="module")
+def pooled():
+    """name -> (the port's PromptTokenizer, its two-worker pool)."""
+    out = {}
+    for name in POOLED:
+        t = TTok.from_file(path(name))
+        out[name] = (t, t.pool(2))
+    yield out
+    for _, pool in out.values():
+        pool.close()
+
+
+@pytest.mark.parametrize("way", ["composed", "packed"])
+@pytest.mark.parametrize("name", POOLED)
+def test_pooled_batches_equal_in_thread(name, way, pooled):
+    """A worker returns the in-thread path's padded batch, array for array:
+    the AffixEncoder's composed encode, and full prompts with per-text
+    labels."""
+    t, pool = pooled[name]
+    texts = TEXTS + random_texts(11, 90)
+    if way == "composed":
+        enc = TAffix.for_labels(t, LABELS, True, 64, sample_text=texts[0])
+        assert enc.exact
+        items, submit, encode = texts, enc.submit, enc.encode_batch
+    else:
+        labels = [LABELS[: 1 + i % len(LABELS)] for i in range(len(texts))]
+        items, submit, encode = pack_prompts(texts, labels, False, True), t.submit, t.encode_batch
+    for pad_to in (None, 64):
+        chunks = [items[i : i + 32] for i in range(0, len(items), 32)]
+        futures = [submit(pool, c, 64, pad_to) for c in chunks]
+        for c, fut in zip(chunks, futures):
+            got, worker_ms = pool.result(fut)
+            want = encode(c, 64, pad_to)
+            assert worker_ms > 0
+            for f in ("input_ids", "attention_mask", "lengths"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("name", POOLED)
+def test_encode_batch_parallel_pools_at_pool_size(name, pooled):
+    """``encode_batch_parallel`` over the pool at POOL_MIN_TEXTS prompts
+    gives one ``encode_batch``'s batch."""
+    t, pool = pooled[name]
+    prompts = pack_prompts(random_texts(5, POOL_MIN_TEXTS), [LABELS[:3]], True, True)
+    for pad_to in (None, 128):
+        got = t.encode_batch_parallel(prompts, 128, pad_to, chunk_size=50, workers=2)
+        want = t.encode_batch(prompts, 128, pad_to)
+        assert t._pool is pool
+        for f in ("input_ids", "attention_mask", "lengths"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_encode_error_in_a_worker_reaches_the_caller(pooled):
+    t, pool = pooled[POOLED[0]]
+    with pytest.raises(ValueError, match="pick a larger bucket"):
+        t.encode_batch(TEXTS, 64, pad_to=4)
+    with pytest.raises(ValueError, match="pick a larger bucket"):
+        pool.result(t.submit(pool, TEXTS, 64, pad_to=4))
+    got, _ = pool.result(t.submit(pool, TEXTS, 64))  # the pool serves on
+    assert np.array_equal(got.input_ids, t.encode_batch(TEXTS, 64).input_ids)
+
+
+def test_freeing_the_tokenizer_ends_its_workers():
+    t = TTok.from_file(path(POOLED[0]))
+    pool = t.pool(2)
+    futures = [t.submit(pool, TEXTS, 64) for _ in range(4)]
+    assert all(pool.result(f)[0].batch_size == len(TEXTS) for f in futures)
+    procs = list(pool._ex._processes.values())
+    assert procs and all(p.is_alive() for p in procs)
+    del t, futures
+    gc.collect()
+    assert not any(p.is_alive() for p in procs)
+    assert all(p.exitcode is not None for p in procs)
+
+
+def test_worker_entry_imports_no_torch():
+    """What a spawned worker imports: the pool's module, without torch."""
+    code = ("import sys, gliclass.c_tpu_torch.tokenize_pool\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'jax', 'tokenizers')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_wrapped_tokenizer_has_no_pool(tokenizers_):
+    """A ``tokenizers.Tokenizer`` releases the interpreter lock itself: no pool."""
+    hf = TTok(HFTokenizer.from_file(path(POOLED[0])))
+    assert hf.pool(2) is None and hf._pool is None
 
 
 @pytest.mark.parametrize("name", FIXTURES + ["tiny"])

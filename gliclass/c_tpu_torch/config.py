@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -28,6 +29,28 @@ DEFAULT_THRESHOLD = 0.5
 # Every value of the JAX package's GLICLASS_TPU_ATTN_ROUTE. "table" and
 # "xla" force the materialized-score path (models/deberta.py score_attention).
 ATTN_ROUTES = ("auto", "flash", "bias", "row", "tiled", "table", "xla")
+
+
+def launch_world() -> tuple[str, int, int, int, int] | None:
+    """(init_method, world size, rank, local rank, local world size) from
+    a launcher's variables, or None when neither set is present: the JAX
+    package's ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``, or
+    torchrun's ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``.
+    The JAX variables say nothing of hosts: ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``, where set, place the rank on its host; else the
+    world is taken as one host."""
+    env = os.environ
+    if env.get("COORDINATOR_ADDRESS") and env.get("NUM_PROCESSES") and env.get("PROCESS_ID"):
+        init = f"tcp://{env['COORDINATOR_ADDRESS']}"
+        world, rank = int(env["NUM_PROCESSES"]), int(env["PROCESS_ID"])
+    elif all(env.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")):
+        init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+    else:
+        return None
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+    return init, world, rank, local_rank, local_world
 
 
 def check_attn_route(route: str) -> str:
@@ -72,8 +95,8 @@ class RuntimeConfig:
     tp_size: int = 1
     sp_size: int = 1
     # Tokenizer worker processes for large jobs (tokenization.PromptTokenizer
-    # .pool): at most this many, and never more than the host's cores allow
-    # (effective_tokenizer_workers).
+    # .pool): at most this many, and never more than this rank's share of
+    # the host's cores allows (effective_tokenizer_workers).
     tokenizer_workers: int = 8
     # Overlap tokenization with device execution (scheduler.plan_and_run_
     # overlapped): tokenize on a producer thread while this thread assembles
@@ -85,13 +108,16 @@ class RuntimeConfig:
         return self.overlap_tokenize != "off"
 
     def effective_tokenizer_workers(self) -> int:
-        """Tokenizer worker processes: ``tokenizer_workers``, capped so two
-        of the cores this process may run on stay free for the dispatching
-        thread and the CUDA runtime's own threads; at least one."""
-        import os
-
+        """Tokenizer worker processes: ``tokenizer_workers``, capped at this
+        rank's share of the cores this process may run on less two, which
+        stay free for its dispatching thread and the CUDA runtime's own
+        threads; at least one. Every rank of a launch runs the whole batch
+        plane (each encodes the whole job), so the cores are shared among
+        the launch's ranks on this host (:func:`launch_world`)."""
+        world = launch_world()
+        ranks = 1 if world is None else max(1, world[4])
         cpus = len(os.sched_getaffinity(0))
-        return max(1, min(self.tokenizer_workers, cpus - 2))
+        return max(1, min(self.tokenizer_workers, cpus // ranks - 2))
 
     # Use the native C++ host ops (prompt packing / batch assembly) when built.
     use_native_host_ops: bool = True

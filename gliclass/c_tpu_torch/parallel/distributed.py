@@ -16,33 +16,15 @@ so the variables above are the only source.
 from __future__ import annotations
 
 import datetime
-import os
 
 import torch
 import torch.distributed as dist
 
+from ..config import launch_world
+
 # Named in the errors of a multi-rank run without a launch.
 LAUNCHER_VARS = ("COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID (the JAX package's) or "
                  "MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE (torchrun's)")
-
-
-def _env_world() -> tuple[str, int, int, int, int] | None:
-    """(init_method, world size, rank, local rank, local world size) from
-    the launcher's variables, or None when neither set is present. The JAX
-    variables say nothing of hosts: LOCAL_RANK and LOCAL_WORLD_SIZE, where
-    set, place the rank on its host; else the world is taken as one host."""
-    env = os.environ
-    if env.get("COORDINATOR_ADDRESS") and env.get("NUM_PROCESSES") and env.get("PROCESS_ID"):
-        init = f"tcp://{env['COORDINATOR_ADDRESS']}"
-        world, rank = int(env["NUM_PROCESSES"]), int(env["PROCESS_ID"])
-    elif all(env.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")):
-        init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
-        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
-    else:
-        return None
-    local_rank = int(env.get("LOCAL_RANK", rank))
-    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
-    return init, world, rank, local_rank, local_world
 
 
 def initialize_from_env(backend: str | None = None, device=None) -> bool:
@@ -57,7 +39,7 @@ def initialize_from_env(backend: str | None = None, device=None) -> bool:
     its collectives staged through host memory)."""
     if dist.is_initialized():
         return True
-    spec = _env_world()
+    spec = launch_world()
     if spec is None:
         return False
     init, world, rank, lrank, lworld = spec

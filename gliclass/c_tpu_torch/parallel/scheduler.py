@@ -23,7 +23,7 @@ import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Any, Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -31,12 +31,9 @@ import torch
 from ..config import RuntimeConfig
 from ..engine import InferenceEngine
 from ..prompting import pack_prompt
-from ..tokenization import POOL_MIN_TEXTS, AffixEncoder, PromptTokenizer, TokenizedBatch
+from ..tokenization import POOL_MIN_TEXTS, AffixEncoder, EncodeTask, PromptTokenizer, TokenizedBatch
 from ..utils import metrics
 from ..utils.metrics import StageTimer
-
-if TYPE_CHECKING:
-    from ..tokenize_pool import TokenizerPool
 
 
 @dataclass
@@ -298,8 +295,7 @@ def plan_and_run_overlapped(
     runtime: RuntimeConfig,
     num_requests: int,
     max_label_count: int,
-    encode_chunk_fn: Callable[[int, int], TokenizedBatch],
-    submit_chunk_fn: "Callable[[TokenizerPool, int, int], Future] | None" = None,
+    chunk_task: Callable[[int, int], EncodeTask],
     chunk: int = 256,
     failures: list[BatchFailure] | None = None,
     timer=None,
@@ -307,19 +303,17 @@ def plan_and_run_overlapped(
     """Tokenize-and-dispatch pipeline: bucketed batches go to the device as
     soon as they fill, while a producer thread brings the next chunk.
 
-    ``encode_chunk_fn(lo, hi)``: requests lo..hi encoded in this process;
-    ``submit_chunk_fn(pool, lo, hi)``: the same encode as a task of the
-    tokenizer's worker pool. A call of at least
+    ``chunk_task(lo, hi)``: the encode of requests lo..hi as an
+    :data:`~..tokenization.EncodeTask`. A call of at least
     :data:`~..tokenization.POOL_MIN_TEXTS` requests whose tokenizer has a
-    pool (``PromptTokenizer.pool``: the port's own reader) encodes there,
-    ``runtime.effective_tokenizer_workers()`` processes off the interpreter
-    lock that this thread's launches need: chunks of a batch over the
-    workers (at least 16 requests), so that they fill a job's first batch
-    together, at most ``2 * workers`` of them outstanding, consumed in
-    order. Smaller calls encode on the producer
-    thread in chunks of 64, 128, then ``chunk``. Either way rows fill each
-    (seq, labels) bucket in request order, so every forward holds the same
-    rows.
+    pool (``PromptTokenizer.pool``: the port's own reader) runs the tasks
+    there, ``runtime.effective_tokenizer_workers()`` processes off the
+    interpreter lock that this thread's launches need: chunks of a batch
+    over the workers (at least 16 requests), so that they fill a job's
+    first batch together, at most ``2 * workers`` of them outstanding,
+    consumed in order. Smaller calls run them on the producer thread in
+    chunks of 64, 128, then ``chunk``. Either way rows fill each (seq,
+    labels) bucket in request order, so every forward holds the same rows.
 
     Every arrival dispatches all ready batches of its shape key as one
     launch (capped at ``_MAX_STACK``); the partial tail batch of each key
@@ -337,7 +331,7 @@ def plan_and_run_overlapped(
     out = np.zeros((num_requests, max_label_count), dtype=np.float32)
     timer = timer if timer is not None else StageTimer()
     pool = None
-    if submit_chunk_fn is not None and num_requests >= POOL_MIN_TEXTS:
+    if num_requests >= POOL_MIN_TEXTS:
         pool = tokenizer.pool(runtime.effective_tokenizer_workers())
     chunk_count = "tokenize_chunks_inline" if pool is None else "tokenize_chunks_pooled"
     # The producer thread's tokenize spans hang under this call's span.
@@ -368,36 +362,46 @@ def plan_and_run_overlapped(
                     max_label_count, failures, in_flight,
                 )
 
-    def sync_chunks():
-        # Ramped chunk sizes: a small first chunk reaches the device fast,
-        # later chunks grow to the full ``chunk``.
-        sizes = [s for s in (64, 128) if s < chunk] or [chunk]
-        c0 = 0
-        while c0 < num_requests:
-            n = sizes.pop(0) if sizes else chunk
-            yield c0, encode_chunk_fn(c0, min(c0 + n, num_requests))
-            c0 += n
+    def chunk_bounds():
+        # In this thread a small first chunk reaches the device fast and
+        # later chunks grow to the full ``chunk``; over the pool every chunk
+        # is a batch over the workers.
+        if pool is None:
+            sizes, size = [s for s in (64, 128) if s < chunk], chunk
+        else:
+            sizes, size = [], min(chunk, max(16, -(-bs // pool.workers)))
+        lo = 0
+        while lo < num_requests:
+            hi = min(lo + (sizes.pop(0) if sizes else size), num_requests)
+            yield lo, hi
+            lo = hi
+
+    def inline_chunks():
+        for lo, hi in chunk_bounds():
+            yield lo, tokenizer.run(chunk_task(lo, hi))
 
     def pooled_chunks():
-        size = min(chunk, max(16, -(-bs // pool.workers)))
-        bounds = deque((lo, min(lo + size, num_requests)) for lo in range(0, num_requests, size))
         pending: deque = deque()
+
+        def oldest():
+            lo, hi, fut = pending.popleft()
+            rec = metrics.RECORDER
+            if rec is None:
+                return lo, pool.result(fut)[0]
+            # The span is this thread's wait; the encode's own time is the
+            # worker's.
+            with rec.span("tokenize", texts=hi - lo, pooled=1) as sp:
+                enc, worker_ms = pool.result(fut)
+                sp.attrs.update(tokens=int(enc.lengths.sum()), worker_ms=round(worker_ms, 3))
+            return lo, enc
+
         try:
-            while bounds or pending:
-                while bounds and len(pending) < 2 * pool.workers:
-                    lo, hi = bounds.popleft()
-                    pending.append((lo, hi, submit_chunk_fn(pool, lo, hi)))
-                lo, hi, fut = pending.popleft()
-                rec = metrics.RECORDER
-                if rec is None:
-                    enc, _ = pool.result(fut)
-                else:
-                    # The span is this thread's wait; the encode's own time
-                    # is the worker's.
-                    with rec.span("tokenize", texts=hi - lo, pooled=1) as sp:
-                        enc, worker_ms = pool.result(fut)
-                        sp.attrs.update(tokens=int(enc.lengths.sum()), worker_ms=round(worker_ms, 3))
-                yield lo, enc
+            for lo, hi in chunk_bounds():
+                pending.append((lo, hi, pool.submit(chunk_task(lo, hi))))
+                if len(pending) == 2 * pool.workers:
+                    yield oldest()
+            while pending:
+                yield oldest()
         finally:
             for _, _, fut in pending:
                 fut.cancel()
@@ -421,7 +425,7 @@ def plan_and_run_overlapped(
         def producer():
             try:
                 with metrics.adopted(parent):
-                    for item in sync_chunks() if pool is None else pooled_chunks():
+                    for item in inline_chunks() if pool is None else pooled_chunks():
                         if not put(item):
                             return
                 put(None)

@@ -119,27 +119,17 @@ class ZeroShotClassificationPipeline:
                 # is kept when the tokenizer breaks the identity.
                 affix = AffixEncoder.for_labels(self.tokenizer, labels[0], pf, L, sample_text=texts[0])
             if affix is not None and affix.exact:
-                def encode_chunk_fn(lo: int, hi: int):
-                    return affix.encode_batch(texts[lo:hi], L)
-
-                def submit_chunk_fn(pool, lo: int, hi: int):
-                    return affix.submit(pool, texts[lo:hi], L)
+                def chunk_task(lo: int, hi: int):
+                    return affix.task(texts[lo:hi], L)
             else:
-                def pack_chunk(lo: int, hi: int):
-                    return pack_prompts(
-                        texts[lo:hi], labels if same_labels else labels[lo:hi], same_labels, pf
-                    )
-
-                def encode_chunk_fn(lo: int, hi: int):
-                    return self.tokenizer.encode_batch(pack_chunk(lo, hi), L)
-
-                def submit_chunk_fn(pool, lo: int, hi: int):
-                    return self.tokenizer.submit(pool, pack_chunk(lo, hi), L)
+                def chunk_task(lo: int, hi: int):
+                    chunk = pack_prompts(texts[lo:hi], labels if same_labels else labels[lo:hi], same_labels, pf)
+                    return self.tokenizer.task(chunk, L)
 
             with timer.stage("tokenize_device"):
                 probs = plan_and_run_overlapped(
-                    self.engine, self.tokenizer, counts, self.runtime, len(texts), max(counts),
-                    encode_chunk_fn, submit_chunk_fn, failures=failures, timer=timer,
+                    self.engine, self.tokenizer, counts, self.runtime, len(texts), max(counts), chunk_task,
+                    failures=failures, timer=timer,
                 )
         else:
             with timer.stage("pack"):

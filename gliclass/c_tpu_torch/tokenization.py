@@ -26,10 +26,8 @@ from the tokenizer when available and fall back to 0.
 from __future__ import annotations
 
 import threading
-import weakref
-from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import numpy as np
 
@@ -49,9 +47,18 @@ _NATIVE_PAD_MIN_ROWS = 4096
 
 # A call of at least this many texts encodes its chunks in the tokenizer's
 # worker processes (PromptTokenizer.pool); a smaller one in the calling
-# thread, where a pool's start and the pickling would cost more than the
-# encodes it takes off the interpreter lock.
+# thread. From this size a job pays for the pool's start: on an H100's host
+# of 8 cores (gliclass-large, a 128,100-piece Unigram reader, 6 workers) a
+# predict_probs of 256 texts took 3.27 s with a pool started for it, 3.01 s
+# in-thread and 1.34 s with a warm pool; of 64 and 128 texts, 2.30 and
+# 2.54 s with a pool started for it against 0.73 and 1.30 s in-thread.
 POOL_MIN_TEXTS = 256
+
+
+# An encode as data: a module-level encoder of this module and its
+# arguments after the tokenizer, run as ``fn(tokenizer, *args)`` in this
+# thread (PromptTokenizer.run) or in a worker (TokenizerPool.submit).
+EncodeTask = tuple[Callable[..., "TokenizedBatch"], tuple[Any, ...]]
 
 
 @dataclass(frozen=True)
@@ -87,7 +94,6 @@ class PromptTokenizer:
         self.label_token_id = tokenizer.token_to_id(LABEL_TAG)
         self.sep_token_id = tokenizer.token_to_id(SEP_TAG)
         self._pool: TokenizerPool | None = None
-        self._pool_finalizer: weakref.finalize | None = None
         self._pool_lock = threading.Lock()
 
     @classmethod
@@ -96,29 +102,38 @@ class PromptTokenizer:
         return cls(Tokenizer.from_file(path), pad_token_id=pad_token_id)
 
     def pool(self, workers: int) -> "TokenizerPool | None":
-        """This tokenizer's pool of ``workers`` worker processes
-        (:mod:`.tokenize_pool`), started on the first call and again after
-        it broke or to change its size; None when the tokenizer is not the
-        port's reader (a wrapped ``tokenizers.Tokenizer`` releases the
-        interpreter lock itself). The pool is shut down, its workers
-        joined, when this tokenizer is freed or at exit."""
+        """This tokenizer's pool of worker processes (:mod:`.tokenize_pool`):
+        ``workers`` of them, started on the first call, and started anew
+        only after it broke; None when the tokenizer is not the port's
+        reader (a wrapped ``tokenizers.Tokenizer`` releases the interpreter
+        lock itself). The pool shuts its workers down when this tokenizer
+        is freed, or at exit."""
         if not isinstance(self._tok, Tokenizer):
             return None
         with self._pool_lock:
-            if self._pool is None or self._pool.broken or self._pool.workers != workers:
+            if self._pool is None or self._pool.broken:
                 from .tokenize_pool import TokenizerPool
 
-                if self._pool_finalizer is not None:
-                    self._pool_finalizer()
+                if self._pool is not None:
+                    self._pool.close()
                 self._pool = TokenizerPool(self._tok, workers)
-                self._pool_finalizer = weakref.finalize(self, self._pool.close)
             return self._pool
 
-    def submit(self, pool: "TokenizerPool", prompts: Sequence[str], max_length: int,
-               pad_to: int | None = None) -> Future:
-        """:meth:`encode_batch` of ``prompts`` as a task of ``pool``: read
-        it with ``pool.result``."""
-        return pool.submit(encode_prompts, list(prompts), max_length, self.pad_token_id, pad_to)
+    def task(self, prompts: Sequence[str], max_length: int, pad_to: int | None = None) -> EncodeTask:
+        """:meth:`encode_batch` of ``prompts`` as an :data:`EncodeTask`."""
+        return encode_prompts, (list(prompts), max_length, self.pad_token_id, pad_to)
+
+    def run(self, task: EncodeTask) -> TokenizedBatch:
+        """``task`` in this thread; with the recorder on, in a ``tokenize``
+        span with the texts and their tokens."""
+        fn, args = task
+        rec = metrics.RECORDER
+        if rec is None:
+            return fn(self._tok, *args)
+        with rec.span("tokenize", texts=len(args[0])) as sp:
+            out = fn(self._tok, *args)
+            sp.attrs["tokens"] = int(out.lengths.sum())
+        return out
 
     def encode_batch(
         self,
@@ -133,13 +148,7 @@ class PromptTokenizer:
         bucket size for shape stability. With the recorder on, a ``tokenize``
         span with the texts and their tokens.
         """
-        rec = metrics.RECORDER
-        if rec is None:
-            return encode_prompts(self._tok, prompts, max_length, self.pad_token_id, pad_to)
-        with rec.span("tokenize", texts=len(prompts)) as sp:
-            out = encode_prompts(self._tok, prompts, max_length, self.pad_token_id, pad_to)
-            sp.attrs["tokens"] = int(out.lengths.sum())
-        return out
+        return self.run(self.task(prompts, max_length, pad_to))
 
     def encode_batch_parallel(
         self,
@@ -165,7 +174,7 @@ class PromptTokenizer:
         pool = self.pool(workers) if len(prompts) >= POOL_MIN_TEXTS else None
         if pool is None:
             return self.encode_batch(prompts, max_length, pad_to)
-        futures = [self.submit(pool, prompts[i : i + chunk_size], max_length, pad_to)
+        futures = [pool.submit(self.task(prompts[i : i + chunk_size], max_length, pad_to))
                    for i in range(0, len(prompts), chunk_size)]
         parts = [pool.result(f)[0] for f in futures]
         if pad_to is None:
@@ -411,26 +420,14 @@ class AffixEncoder:
                     "fallback_prompts given"
                 )
             return self.tok.encode_batch(fallback_prompts, max_length, pad_to)
-        rec = metrics.RECORDER
-        if rec is None:
-            return self._compose(texts, max_length, pad_to)
-        with rec.span("tokenize", texts=len(texts)) as sp:
-            out = self._compose(texts, max_length, pad_to)
-            sp.attrs["tokens"] = int(out.lengths.sum())
-        return out
+        return self.tok.run(self.task(texts, max_length, pad_to))
 
-    def _compose(self, texts: Sequence[str], max_length: int, pad_to: int | None) -> TokenizedBatch:
-        return encode_composed(self.tok._tok, texts, self.head, self.tail, max_length, self.tok.pad_token_id,
-                               pad_to)
-
-    def submit(self, pool: "TokenizerPool", texts: Sequence[str], max_length: int,
-               pad_to: int | None = None) -> Future:
+    def task(self, texts: Sequence[str], max_length: int, pad_to: int | None = None) -> EncodeTask:
         """The composed :meth:`encode_batch` of ``texts`` (``exact`` only)
-        as a task of ``pool``: read it with ``pool.result``."""
+        as an :data:`EncodeTask`."""
         if not self.exact:
             raise ValueError(f"AffixEncoder inexact ({self._why}): encode the full prompts")
-        return pool.submit(encode_composed, list(texts), self.head, self.tail, max_length, self.tok.pad_token_id,
-                           pad_to)
+        return encode_composed, (list(texts), self.head, self.tail, max_length, self.tok.pad_token_id, pad_to)
 
 
 def _find_subseq(hay: list, needle: list) -> int | None:

@@ -329,15 +329,19 @@ def _fresh_pipe(pooled_pipe, bundle_dir):
     return ZeroShotClassificationPipeline(pooled_pipe.engine, tok, RuntimeConfig(**POOL_RT))
 
 
-def test_job_under_pool_size_starts_no_process(pooled_pipe, bundle_dir):
-    import multiprocessing
+def _children() -> set[int]:
+    """This process's child processes, from every thread's ``children``."""
+    tasks = f"/proc/{os.getpid()}/task"
+    return {int(c) for t in os.listdir(tasks) for c in open(f"{tasks}/{t}/children").read().split()}
 
+
+def test_job_under_pool_size_starts_no_process(pooled_pipe, bundle_dir):
     pipe = _fresh_pipe(pooled_pipe, bundle_dir)
-    before = {p.pid for p in multiprocessing.active_children()}
+    before = _children()
     out = pipe.classify_job(parse_job(_job(255, True)))
     assert out.timings["tokenize_chunks_inline"] > 0 and "tokenize_chunks_pooled" not in out.timings
     assert pipe.tokenizer._pool is None
-    assert {p.pid for p in multiprocessing.active_children()} == before
+    assert _children() == before
 
 
 @pytest.mark.parametrize("way", ["pooled", "inline"])
@@ -363,11 +367,11 @@ def test_killed_worker_fails_the_job_naming_the_pool(pooled_pipe, bundle_dir):
 
     pipe = _fresh_pipe(pooled_pipe, bundle_dir)
     pool = pipe.tokenizer.pool(2)
-    futures = [pipe.tokenizer.submit(pool, ["the quick brown fox"] * 4, 64) for _ in range(4)]
+    futures = [pool.submit(pipe.tokenizer.task(["the quick brown fox"] * 4, 64)) for _ in range(4)]
     assert all(pool.result(f)[0].batch_size == 4 for f in futures)
-    victim = next(iter(pool._ex._processes.values()))
+    victim = pool._procs[0]
     os.kill(victim.pid, signal.SIGKILL)
-    victim.join(timeout=30)
+    victim.wait(timeout=30)
     job = parse_job(_job(300, True))
     with pytest.raises(TokenizerPoolBroken, match=r"tokenizer worker pool \(2 processes\) broke"):
         pipe.classify_job(job)

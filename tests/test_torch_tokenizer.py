@@ -213,13 +213,13 @@ def test_pooled_batches_equal_in_thread(name, way, pooled):
     if way == "composed":
         enc = TAffix.for_labels(t, LABELS, True, 64, sample_text=texts[0])
         assert enc.exact
-        items, submit, encode = texts, enc.submit, enc.encode_batch
+        items, task, encode = texts, enc.task, enc.encode_batch
     else:
         labels = [LABELS[: 1 + i % len(LABELS)] for i in range(len(texts))]
-        items, submit, encode = pack_prompts(texts, labels, False, True), t.submit, t.encode_batch
+        items, task, encode = pack_prompts(texts, labels, False, True), t.task, t.encode_batch
     for pad_to in (None, 64):
         chunks = [items[i : i + 32] for i in range(0, len(items), 32)]
-        futures = [submit(pool, c, 64, pad_to) for c in chunks]
+        futures = [pool.submit(task(c, 64, pad_to)) for c in chunks]
         for c, fut in zip(chunks, futures):
             got, worker_ms = pool.result(fut)
             want = encode(c, 64, pad_to)
@@ -247,32 +247,104 @@ def test_encode_error_in_a_worker_reaches_the_caller(pooled):
     with pytest.raises(ValueError, match="pick a larger bucket"):
         t.encode_batch(TEXTS, 64, pad_to=4)
     with pytest.raises(ValueError, match="pick a larger bucket"):
-        pool.result(t.submit(pool, TEXTS, 64, pad_to=4))
-    got, _ = pool.result(t.submit(pool, TEXTS, 64))  # the pool serves on
+        pool.result(pool.submit(t.task(TEXTS, 64, pad_to=4)))
+    got, _ = pool.result(pool.submit(t.task(TEXTS, 64)))  # the pool serves on
     assert np.array_equal(got.input_ids, t.encode_batch(TEXTS, 64).input_ids)
+
+
+def test_pool_serves_concurrent_submitters(pooled):
+    """Eight threads submit to one two-worker pool at once, with thread
+    switches forced often: every answer is its own task's batch."""
+    import threading
+
+    t, pool = pooled[POOLED[1]]
+    texts = random_texts(17, 160)
+    want = {i: t.encode_batch(texts[i : i + 5], 64) for i in range(0, len(texts), 5)}
+    got, errors = {}, []
+
+    def submitter(k: int):
+        try:
+            futures = {i: pool.submit(t.task(texts[i : i + 5], 64)) for i in range(k * 5, len(texts), 40)}
+            got.update({i: pool.result(f)[0] for i, f in futures.items()})
+        except Exception as e:
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=submitter, args=(k,)) for k in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(th.is_alive() for th in threads)
+    assert sorted(got) == sorted(want)
+    for i, b in want.items():
+        assert np.array_equal(got[i].input_ids, b.input_ids) and np.array_equal(got[i].lengths, b.lengths), i
 
 
 def test_freeing_the_tokenizer_ends_its_workers():
     t = TTok.from_file(path(POOLED[0]))
     pool = t.pool(2)
-    futures = [t.submit(pool, TEXTS, 64) for _ in range(4)]
+    futures = [pool.submit(t.task(TEXTS, 64)) for _ in range(4)]
     assert all(pool.result(f)[0].batch_size == len(TEXTS) for f in futures)
-    procs = list(pool._ex._processes.values())
-    assert procs and all(p.is_alive() for p in procs)
-    del t, futures
+    procs = list(pool._procs)
+    assert len(procs) == 2 and all(p.poll() is None for p in procs)
+    del t, pool, futures
     gc.collect()
-    assert not any(p.is_alive() for p in procs)
-    assert all(p.exitcode is not None for p in procs)
+    assert all(p.returncode == 0 for p in procs)
 
 
-def test_worker_entry_imports_no_torch():
-    """What a spawned worker imports: the pool's module, without torch."""
-    code = ("import sys, gliclass.c_tpu_torch.tokenize_pool\n"
-            "print(sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'jax', 'tokenizers')))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, PYTHONPATH=ROOT))
+# Run as a script, without a ``__main__`` guard: torch at its top, a mark
+# for each time its top level runs, and a worker's own sys.modules printed.
+POOL_SCRIPT = """
+import json, sys
+import torch
+with open(sys.argv[2], "a") as f:
+    f.write("top\\n")
+import probe
+from gliclass.c_tpu_torch.tokenization import PromptTokenizer
+tok = PromptTokenizer.from_file(sys.argv[1])
+pool = tok.pool(1)
+modules, _ = pool.result(pool.submit((probe.modules, ())))
+print(json.dumps(sorted(m for m in modules if m.split(".")[0] in ("torch", "jax", "tokenizers", "probe"))))
+"""
+
+
+def test_worker_entry_imports_no_torch(tmp_path):
+    """A worker started from a script that imports torch and has no
+    ``__main__`` guard: the script's top level runs once, in the script's
+    process, and the worker's own modules hold no torch."""
+    (tmp_path / "probe.py").write_text("import sys\n\n\ndef modules(tok):\n    return list(sys.modules)\n")
+    (tmp_path / "script.py").write_text(POOL_SCRIPT)
+    mark = tmp_path / "mark"
+    out = subprocess.run([sys.executable, str(tmp_path / "script.py"), path(POOLED[0]), str(mark)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    assert json.loads(out.stdout) == ["probe"]
+    assert mark.read_text() == "top\n"
+
+
+@pytest.mark.parametrize("env, cpus, workers, want", [
+    ({}, 8, 8, 6),
+    ({}, 3, 8, 1),
+    ({}, 32, 3, 3),
+    ({"MASTER_ADDR": "h", "MASTER_PORT": "1", "RANK": "0", "WORLD_SIZE": "2"}, 8, 8, 2),
+    ({"MASTER_ADDR": "h", "MASTER_PORT": "1", "RANK": "5", "WORLD_SIZE": "8", "LOCAL_WORLD_SIZE": "4"}, 32, 8, 6),
+    ({"COORDINATOR_ADDRESS": "h:1", "NUM_PROCESSES": "4", "PROCESS_ID": "1"}, 8, 8, 1),
+])
+def test_effective_tokenizer_workers_share_the_host(env, cpus, workers, want, monkeypatch):
+    """Two of a rank's share of the cores stay free; every rank of a launch
+    on the host encodes its own copy of a job, so the ranks share them."""
+    for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "RANK",
+              "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(cpus)))
+    assert tcfg.RuntimeConfig(tokenizer_workers=workers).effective_tokenizer_workers() == want
 
 
 def test_wrapped_tokenizer_has_no_pool(tokenizers_):
